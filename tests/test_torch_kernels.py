@@ -1,0 +1,258 @@
+"""The port's kernel packages (K1 forest, K2 wpd_level, K3 gram) on the CPU.
+
+Each plain PyTorch version is held to the JAX package's ``ref.py`` on the
+same numpy-seeded inputs; the CUDA kernels themselves run only on the
+card (``chip_smoke.py`` holds each against its plain version there). The
+routing rule is pinned too: a CPU tensor takes the plain version, and a
+kernel wrapper refuses a CPU tensor without counting a launch. Last, the
+port must import neither ``jax`` nor ``repro``.
+
+Tolerances:
+  * wpd_level and gram: max abs <= 1e-5 * max|ref| and relative Frobenius
+    <= 1e-5 -- both sides sum the same float32 products in a different
+    order (taps, or the length-n contraction), a few ulps apart.
+  * forest: the leaf one-hots are exact, and the sums over trees are
+    taken in the same ascending order, so the summed probabilities agree
+    to 1e-6 and the argmax is equal wherever the routing margin
+    ``min |x . proj - thr|`` along the path exceeds 1e-4 (a float32
+    matmul of length F can move a split value by ~1e-6 of its scale).
+"""
+
+from __future__ import annotations
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.forest import ref as jforest_ref
+from repro.kernels.gram import ref as jgram_ref
+from repro.kernels.wpd import ref as jwpd_ref
+from repro.signal import wavelet as jwavelet
+from repro_torch.kernels.forest import kernel as forest_kernel
+from repro_torch.kernels.forest import ops as forest_ops
+from repro_torch.kernels.forest import ref as forest_ref
+from repro_torch.kernels.gram import kernel as gram_kernel
+from repro_torch.kernels.gram import ops as gram_ops
+from repro_torch.kernels.wpd import kernel as wpd_kernel
+from repro_torch.kernels.wpd import ops as wpd_ops
+from repro_torch.signal import wavelet
+
+# One intra-op thread: the suite runs in parallel workers on a shared
+# machine, where OpenMP barriers across two threads stall far longer
+# than one thread takes to do the work alone.
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _close(got: np.ndarray, want: np.ndarray, rel: float) -> None:
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() <= rel * scale
+    assert np.linalg.norm(got - want) <= rel * np.linalg.norm(want)
+
+
+# ---------------------------------------------------------------------------
+# K1 forest
+# ---------------------------------------------------------------------------
+
+def _packed(rng, n_trees, f, depth, n_classes=2, dead_frac=0.2):
+    n_leaves = 2**depth
+    proj = rng.normal(size=(n_trees, f, n_leaves)).astype(np.float32)
+    thr = rng.normal(scale=2.0, size=(n_trees, n_leaves)).astype(np.float32)
+    thr[rng.random(thr.shape) < dead_frac] = np.inf
+    leaf = rng.random((n_trees, n_leaves, n_classes)).astype(np.float32)
+    leaf /= leaf.sum(-1, keepdims=True)
+    return proj, thr, leaf
+
+
+def _margins(x, proj, thr):
+    """(B,) JAX-side routing margin: min over trees and path nodes of
+    |x . proj - thr| (dead nodes never decide a route)."""
+    depth = proj.shape[-1].bit_length() - 1
+    vals = np.asarray(jnp.einsum("bf,tfl->tbl", x, proj))
+    out = np.full(x.shape[0], np.inf)
+    for t in range(proj.shape[0]):
+        node = np.ones(x.shape[0], np.int64)
+        for _ in range(depth):
+            v = vals[t, np.arange(x.shape[0]), node]
+            gap = np.abs(v - thr[t, node])
+            out = np.minimum(out, np.where(np.isfinite(thr[t, node]), gap, np.inf))
+            node = 2 * node + (v > thr[t, node])
+    return out
+
+
+@pytest.mark.parametrize("depth", [2, 3, 4])
+def test_forest_plain_matches_jax_ref(depth):
+    rng = np.random.default_rng(37 + depth)
+    b, f, n_trees = 37, 16, 3
+    proj, thr, leaf = _packed(rng, n_trees, f, depth)
+    x = rng.normal(size=(b, f)).astype(np.float32)
+    want = np.asarray(jforest_ref.forest_traverse(
+        jnp.asarray(x), jnp.asarray(proj), jnp.asarray(thr), jnp.asarray(leaf)
+    ))
+    got = forest_ref.forest_traverse(*map(torch.from_numpy, (x, proj, thr, leaf))).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    safe = _margins(x, proj, thr) > 1e-4
+    assert safe.mean() > 0.5
+    np.testing.assert_array_equal(got.argmax(-1)[safe], want.argmax(-1)[safe])
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 6])
+def test_leaf_match_matches_jax(depth):
+    rng = np.random.default_rng(depth)
+    dirs = rng.random((23, 2**depth)) < 0.5
+    want = np.asarray(jforest_ref.leaf_match(jnp.asarray(dirs)))
+    got = forest_ref.leaf_match(torch.from_numpy(dirs)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got.sum(-1) == 1).all()
+
+
+def test_forest_predict_proba_pads_features_and_averages():
+    """Features narrower than the forest are right-padded with zeros and
+    the sum over trees is divided by T, as the reference does."""
+    from repro.kernels.forest import ops as jforest_ops
+
+    rng = np.random.default_rng(5)
+    proj, thr, leaf = _packed(rng, 4, 12, 3)
+    x = rng.normal(size=(19, 10)).astype(np.float32)
+    jpacked = jforest_ops.PackedForest(*map(jnp.asarray, (proj, thr, leaf)))
+    want = np.asarray(jforest_ops.forest_predict_proba(
+        jpacked, jnp.asarray(x), use_pallas=False
+    ))
+    packed = forest_ops.PackedForest(*map(torch.from_numpy, (proj, thr, leaf)))
+    got = forest_ops.forest_predict_proba(packed, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got.sum(-1), 1.0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# K2 wpd_level
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["db1", "db2", "db3", "db4"])
+def test_wpd_level_plain_matches_jax_ref(name):
+    rng = np.random.default_rng(64)
+    x = rng.normal(size=(5, 64)).astype(np.float32)
+    jh, jg = jwavelet.filters(name)
+    want_a, want_d = (np.asarray(v) for v in jwpd_ref.wpd_level(jnp.asarray(x), jh, jg))
+    h, g = wavelet.filters(name)
+    got_a, got_d = (v.numpy() for v in wpd_ops.wpd_level(torch.from_numpy(x), h, g))
+    _close(got_a, want_a, 1e-5)
+    _close(got_d, want_d, 1e-5)
+
+
+def test_wpd_level_short_rows_wrap_fully():
+    """Rows shorter than the filter wrap around more than once."""
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(3, 4)).astype(np.float32)
+    jh, jg = jwavelet.filters("db4")
+    want_a, want_d = (np.asarray(v) for v in jwpd_ref.wpd_level(jnp.asarray(x), jh, jg))
+    got_a, got_d = (v.numpy() for v in wpd_ops.wpd_level(torch.from_numpy(x), *wavelet.filters("db4")))
+    _close(got_a, want_a, 1e-5)
+    _close(got_d, want_d, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K3 gram
+# ---------------------------------------------------------------------------
+
+def test_gram_plain_matches_jax_ref():
+    rng = np.random.default_rng(33)
+    x = rng.normal(size=(33, 10)).astype(np.float32)
+    want = np.asarray(jgram_ref.gram(jnp.asarray(x)))
+    got = gram_ops.gram(torch.from_numpy(x)).numpy()
+    _close(got, want, 1e-5)
+
+
+def test_gram_batched_and_transposed_view():
+    """A batch of (n, p) blocks, and the (p, n) variable-major layout read
+    through a transposed view (the way pca.fit_T hands it over)."""
+    rng = np.random.default_rng(34)
+    xt = rng.normal(size=(4, 10, 33)).astype(np.float32)  # (batch, p, n)
+    want = np.stack([np.asarray(jgram_ref.gram(jnp.asarray(m.T))) for m in xt])
+    view = torch.from_numpy(xt).transpose(-1, -2)
+    assert not view.is_contiguous()
+    got = gram_ops.gram(view).numpy()
+    _close(got, want, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Routing: CPU tensors take the plain version; kernels refuse them
+# ---------------------------------------------------------------------------
+
+def test_kernel_wrappers_refuse_cpu_tensors_without_counting():
+    x = torch.zeros(4, 16)
+    counts = (forest_kernel.LAUNCHES, wpd_kernel.LAUNCHES, gram_kernel.LAUNCHES)
+    with pytest.raises(ValueError):
+        wpd_kernel.wpd_level(x, *wavelet.filters("db4"))
+    with pytest.raises(ValueError):
+        gram_kernel.gram(x[None])
+    with pytest.raises(ValueError):
+        forest_kernel.forest_traverse(
+            x, torch.zeros(1, 16, 4), torch.zeros(1, 4), torch.zeros(1, 4, 2)
+        )
+    assert (forest_kernel.LAUNCHES, wpd_kernel.LAUNCHES, gram_kernel.LAUNCHES) == counts
+    # The ops route the same CPU tensors to the plain versions.
+    assert gram_ops.gram(x).shape == (16, 16)
+    assert wpd_ops.wpd_level(x, *wavelet.filters("db4"))[0].shape == (4, 8)
+
+
+def test_kernel_library_is_keyed_by_the_sources():
+    from repro_torch.kernels import build
+
+    path = build.library_path()
+    assert path.parent == ROOT / "build" / "repro_torch"
+    assert path == build.library_path()
+    assert {p.name for p in build._sources()} >= {"forest.cu", "gram.cu", "wpd_level.cu"}
+
+
+# ---------------------------------------------------------------------------
+# The port imports no JAX and nothing of the JAX package
+# ---------------------------------------------------------------------------
+
+def _port_files():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_no_repro_imports_in_port_sources():
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("repro", "jax", "jaxlib"), f"{path}: imports {name}"
+
+
+def test_every_port_module_imports_without_jax():
+    modules = [
+        ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
+        for p in sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    ]
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.')) for k in sys.modules"
+        " if sys.modules[k] is not None)\n"
+        f"print('ok', {len(modules)})\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
