@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of the seizure-scoring path on one CUDA card.
+"""Drive the PyTorch port of the seizure-scoring and training paths on one
+CUDA card.
 
 Run from the root of a checkout, with no arguments:
 
@@ -9,9 +10,10 @@ Phases (any failure exits non-zero):
   1. Device: the card's name and power limit from nvidia-smi; the kernel
      library is built from ``src/repro_torch/csrc`` (nvcc, first use).
   2. Kernels: K1 forest, K2 wpd_level and K3 gram against their plain
-     PyTorch versions at the main path's shapes, each with its error,
+     PyTorch versions at the scoring path's shapes, each with its error,
      its time, the plain version's time, one PyTorch library call's time
-     where one computes the same function, and its bound on this card.
+     where one computes the same function, and its bound on this card
+     (K4 histogram likewise in phase 6, at the grower's shapes).
   3. Engine: the committed full-width program serves 8 sessions of
      generated EEG (6 chunks each, pushed in chunk-unaligned pieces) at
      max_batch=8, replay_depth=4, at overlap 0 and at overlap 2; every
@@ -22,8 +24,22 @@ Phases (any failure exits non-zero):
      differ only where its routing margin is below 1e-3 (z-units).
   5. Stage times of one engine step (the six eigh calls of one denoise
      among them), a profiler trace of one step (device busy and idle
-     share, device time by kernel), a ``kernels`` JSON line, the card
-     line, and the last line ``{"ok": true, "device": {...}}``.
+     share, device time by kernel).
+  6. Training: a MapReduce fit of the default ``PipelineConfig`` (10
+     trees of depth 6, 32 bins, F = 288) over 2 shards of 16 + 16
+     stratified generated chunks, timed by stage; K4 must launch once per
+     level and shard (12 times), and equal its plain version exactly on
+     the grower's 0/1 masses (and within 1e-5 relative on float weights).
+     The fit is checkpointed, reloaded and served on a held-out timeline
+     (1 h interictal, the 48-minute run-up, the seizure) pushed 37
+     windows at a time; the served alarms must equal
+     ``pipeline.evaluate_timeline``, and the port-trained forest's window
+     accuracy may trail the committed JAX-trained program's by at most
+     0.05. A retrain on fresh shards is swapped into the running engine
+     mid-stream; version stamps and the composite old/new alarm oracle
+     must be exact.
+  7. A ``kernels`` JSON line, the card line, and the last line
+     ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -54,6 +70,10 @@ CHUNKS_PER_SESSION = 6
 MAX_BATCH = 8
 REPLAY_DEPTH = 4
 PUSH_CUTS = (0, 97, 150, 245, 270, 333, 360)  # chunk-unaligned push pieces
+TRAIN_PATIENT = 3
+TRAIN_CHUNKS_PER_CLASS = 16
+TRAIN_SHARDS = 2
+PUSH = 37  # windows per push when serving the held-out timeline
 
 
 def fail(msg: str) -> None:
@@ -95,32 +115,35 @@ def plain_versions():
     wrappers' kernel entries are swapped for the ref functions)."""
     from repro_torch.kernels.forest import kernel as fk, ref as fr
     from repro_torch.kernels.gram import kernel as gk, ref as gr
+    from repro_torch.kernels.histogram import kernel as hk, ref as hr
     from repro_torch.kernels.wpd import kernel as wk, ref as wr
 
-    saved = (fk.forest_traverse, gk.gram, wk.wpd_level)
-    fk.forest_traverse, gk.gram, wk.wpd_level = (
-        fr.forest_traverse, gr.gram, wr.wpd_level
+    saved = (fk.forest_traverse, gk.gram, wk.wpd_level, hk.class_histogram)
+    fk.forest_traverse, gk.gram, wk.wpd_level, hk.class_histogram = (
+        fr.forest_traverse, gr.gram, wr.wpd_level, hr.class_histogram
     )
     try:
         yield
     finally:
-        fk.forest_traverse, gk.gram, wk.wpd_level = saved
+        fk.forest_traverse, gk.gram, wk.wpd_level, hk.class_histogram = saved
+
+
+def _kernel_modules() -> dict:
+    from repro_torch.kernels.forest import kernel as fk
+    from repro_torch.kernels.gram import kernel as gk
+    from repro_torch.kernels.histogram import kernel as hk
+    from repro_torch.kernels.wpd import kernel as wk
+
+    return {"forest": fk, "wpd_level": wk, "gram": gk, "histogram": hk}
 
 
 def launch_counts() -> dict[str, int]:
-    from repro_torch.kernels.forest import kernel as fk
-    from repro_torch.kernels.gram import kernel as gk
-    from repro_torch.kernels.wpd import kernel as wk
-
-    return {"forest": fk.LAUNCHES, "wpd_level": wk.LAUNCHES, "gram": gk.LAUNCHES}
+    return {name: mod.LAUNCHES for name, mod in _kernel_modules().items()}
 
 
 def reset_counts() -> None:
-    from repro_torch.kernels.forest import kernel as fk
-    from repro_torch.kernels.gram import kernel as gk
-    from repro_torch.kernels.wpd import kernel as wk
-
-    fk.LAUNCHES = gk.LAUNCHES = wk.LAUNCHES = 0
+    for mod in _kernel_modules().values():
+        mod.LAUNCHES = 0
 
 
 def path_walk(x, packed):
@@ -242,12 +265,7 @@ def check_kernels(program, gen) -> dict[str, dict]:
         if not err <= tol:
             fail(f"gram kernel ({n}x{p}) disagrees with its plain version: {err} > {tol}")
 
-    for name, r in rows.items():
-        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        print(f"kernel {name}: {r['shape']}: max_abs_err {r['max_abs_err']:.3e} "
-              f"(tol {r['tol']:.3e}{'; ' + r['note'] if 'note' in r else ''}); "
-              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib}, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    print_kernel_rows(rows)
     return rows
 
 
@@ -491,6 +509,242 @@ def trace_step(program, traffic) -> None:
             print(f"trace kernel: {ms:.3f} ms in {n} launches: {kname[:110]}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: training on the card
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def stage_clock(stages: dict, owner, name: str, label: str, hook=None):
+    """Add the synchronized wall time of every call of ``owner.name`` to
+    ``stages[label]`` for the duration (``hook(args)`` sees each call's
+    arguments)."""
+    import torch
+
+    fn = getattr(owner, name)
+    stages.setdefault(label, 0.0)
+
+    def timed(*args, **kwargs):
+        if hook is not None:
+            hook(args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        stages[label] += time.perf_counter() - t0
+        return out
+
+    setattr(owner, name, timed)
+    try:
+        yield
+    finally:
+        setattr(owner, name, fn)
+
+
+def training_set(gen):
+    from repro_torch.signal import eeg_data
+
+    per = eeg_data.WINDOWS_PER_MATRIX
+    return eeg_data.stratify_chunks(eeg_data.make_training_set(
+        gen, TRAIN_PATIENT, n_interictal_windows=TRAIN_CHUNKS_PER_CLASS * per,
+        n_preictal_windows=TRAIN_CHUNKS_PER_CLASS * per,
+    ))
+
+
+def timed_fit(gen, rec, cfg):
+    """One MapReduce fit with its stage times (seconds) and the K4 inputs
+    of the last shard's levels, by bucket count."""
+    import torch
+
+    from repro_torch.core import decision_tree as dt
+    from repro_torch.core import rotation_forest as rf
+    from repro_torch.kernels.histogram import ops as hist_ops
+    from repro_torch.signal import pipeline
+
+    stages: dict[str, float] = {}
+    captured: dict[int, tuple] = {}
+    with contextlib.ExitStack() as stack:
+        for owner, name, label, hook in (
+            (pipeline, "process_windows", "feature extraction (MSPCA + WPD)", None),
+            (rf, "_prepare_trees", "tree prep (rotation, x @ R, binning)", None),
+            (rf, "_build_rotation", "of which rotation", None),
+            (rf, "_block_components", "of which rotation eigh", None),
+            (dt, "fit_forest_binned", "grower", None),
+            (hist_ops, "class_histogram", "of which K4 histogram",
+             lambda a: captured.__setitem__(a[2], (a[0], a[1]))),
+        ):
+            stack.enter_context(stage_clock(stages, owner, name, label, hook))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fitted = pipeline.fit(gen, rec, cfg, n_shards=TRAIN_SHARDS)
+        torch.cuda.synchronize()
+        stages["fit"] = time.perf_counter() - t0
+    return fitted, stages, captured
+
+
+def check_histogram(captured, gen) -> dict[str, dict]:
+    """K4 against its plain version on the grower's own level-0 and
+    deepest-level inputs: exact on its 0/1 masses, within 1e-5 relative on
+    random float weights."""
+    import torch
+
+    from repro_torch.kernels.histogram import kernel as hk, ref as hr
+
+    rows = {}
+    for n_buckets in (max(captured), min(captured)):
+        codes, wy = (v.contiguous() for v in captured[n_buckets])
+        t, n, f = codes.shape
+        c = wy.shape[-1]
+        got, want = hk.class_histogram(codes, wy, n_buckets), hr.class_histogram(codes, wy, n_buckets)
+        wf = torch.rand(wy.shape, generator=gen, device=wy.device)
+        got_f, want_f = hk.class_histogram(codes, wf, n_buckets), hr.class_histogram(codes, wf, n_buckets)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel_f = float((got_f - want_f).abs().max() / want_f.abs().max())
+        if err != 0.0:
+            fail(f"histogram kernel ({n_buckets} buckets) differs from its plain version "
+                 f"on 0/1 masses by {err}")
+        if not rel_f <= 1e-5:
+            fail(f"histogram kernel ({n_buckets} buckets) on float weights: relative "
+                 f"error {rel_f} > 1e-5")
+        # The library yardstick: one index_put_ accumulate of the same
+        # scatter (out-of-range codes to a spill bucket).
+        safe = torch.where((codes >= 0) & (codes < n_buckets), codes, n_buckets).long()
+        dev = codes.device
+        index = (torch.arange(t, device=dev)[:, None, None, None],
+                 torch.arange(f, device=dev)[None, None, :, None],
+                 safe[..., None], torch.arange(c, device=dev))
+        values = wy[:, :, None, :].expand(t, n, f, c)
+
+        def library():
+            return torch.zeros((t, f, n_buckets + 1, c), device=dev).index_put_(
+                index, values, accumulate=True)
+
+        lib = library()[:, :, :n_buckets]
+        if not torch.equal(lib, want):
+            fail("index_put_ yardstick disagrees with the plain histogram")
+        # Bytes: codes and wy read once, the histogram written once; one add
+        # per sample, feature and class.
+        b_ms, b_by = bound_ms(4 * (codes.numel() + wy.numel() + t * f * n_buckets * c),
+                              1.0 * codes.numel() * c)
+        rows[f"histogram/{n_buckets}"] = dict(
+            shape=f"codes {tuple(codes.shape)}, wy {tuple(wy.shape)}, {n_buckets} buckets",
+            max_abs_err=err, tol=0.0,
+            note=f"float weights: relative error {rel_f:.2e} (tol 1e-5)",
+            ms=time_ms(lambda: hk.class_histogram(codes, wy, n_buckets)),
+            plain_ms=time_ms(lambda: hr.class_histogram(codes, wy, n_buckets)),
+            library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by,
+        )
+    print_kernel_rows(rows)
+    return rows
+
+
+def serve_timeline(engine, patient, windows, lo, hi) -> list:
+    """Push windows[lo:hi] PUSH at a time, polling after each; the scored
+    chunk events."""
+    from repro_torch.serving import api
+
+    session = engine.session(patient) or engine.open_session(patient)
+    events = []
+    for i in range(lo, hi, PUSH):
+        session.push(windows[i:min(i + PUSH, hi)])
+        events += engine.poll()
+    return [e for e in events if isinstance(e, api.ChunkScored)]
+
+
+def training_phase(gen, committed) -> tuple[dict, int]:
+    """Phase 6. Returns the K4 rows and K4's launches in the first fit."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.serving import api
+    from repro_torch.signal import eeg_data, pipeline
+
+    cfg = pipeline.PipelineConfig()
+    rec = training_set(gen)
+    n_train = rec.windows.shape[0]
+    print(f"train data: {n_train} windows {tuple(rec.windows.shape[1:])} "
+          f"({rec.windows.numel() * 4 / 1e6:.1f} MB), {int(rec.labels.sum())} preictal, "
+          f"cfg {cfg}")
+    reset_counts()
+    fitted, stages, captured = timed_fit(gen, rec, cfg)
+    counts = launch_counts()
+    n_levels = cfg.forest.depth * TRAIN_SHARDS
+    print(f"train fit: {TRAIN_SHARDS} shards -> {fitted.forest.rotation.shape[0]} trees, "
+          f"{stages['fit']:.3f} s, {n_train / stages['fit']:.1f} training windows/s; "
+          f"launches {counts}")
+    for label, sec in stages.items():
+        if label != "fit":
+            print(f"train stage {label}: {sec:.3f} s ({sec / stages['fit']:.1%} of the fit)")
+    if counts["histogram"] != n_levels:
+        fail(f"K4 launched {counts['histogram']} times in the fit, expected {n_levels}")
+    if fitted.forest.rotation.shape[0] != cfg.forest.n_trees:
+        fail(f"union forest has {fitted.forest.rotation.shape[0]} trees")
+    hist_launches = counts["histogram"]
+    rows = check_histogram(captured, gen)
+
+    # Checkpoint, reload, serve a held-out timeline.
+    with tempfile.TemporaryDirectory(prefix="seizure_program_") as directory:
+        api.ScoringProgram.from_fitted(fitted, cfg).save(directory)
+        program = api.ScoringProgram.load(directory, device="cuda")
+    timeline = eeg_data.make_test_timeline(gen, TRAIN_PATIENT, hours_interictal=1)
+    wins = timeline.windows.cpu().numpy()
+    per = eeg_data.WINDOWS_PER_MATRIX
+    n_chunks = wins.shape[0] // per
+    engine = api.SeizureEngine(program, max_batch=4, replay_depth=4, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scored = serve_timeline(engine, TRAIN_PATIENT, wins, 0, wins.shape[0])
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    res = pipeline.evaluate_timeline(fitted, timeline, cfg)
+    if [e.alarm for e in scored] != res.alarms.tolist() or len(scored) != n_chunks:
+        fail(f"served alarms {[e.alarm for e in scored]} != evaluate_timeline "
+             f"{res.alarms.tolist()}")
+    labels = timeline.labels.cpu()
+    acc = float((res.window_preds == labels).float().mean())
+    ref = pipeline.evaluate_program(committed, timeline)
+    ref_acc = float((ref.window_preds == labels).float().mean())
+    print(f"serve held-out: {wins.shape[0]} windows ({n_chunks} chunks) in {serve_s:.3f} s, "
+          f"{engine.steps} steps; served alarms == evaluate_timeline "
+          f"{res.alarms.tolist()}; window accuracy {acc:.4f}, lead time "
+          f"{float(res.lead_time_minutes):.0f} min; committed JAX-trained program: "
+          f"accuracy {ref_acc:.4f}, lead time {float(ref.lead_time_minutes):.0f} min, "
+          f"alarms {ref.alarms.tolist()}")
+    if acc < ref_acc - 0.05:
+        fail(f"port-trained accuracy {acc:.4f} trails the committed program's "
+             f"{ref_acc:.4f} by more than 0.05")
+
+    # Retrain on fresh shards, swap into the running engine mid-stream.
+    fitted2, stages2, _ = timed_fit(gen, training_set(gen), cfg)
+    k_swap = n_chunks // 2
+    scored2 = serve_timeline(engine, TRAIN_PATIENT + 1000, wins, 0, k_swap * per)
+    version = engine.swap_program(api.ScoringProgram.from_fitted(fitted2, cfg))
+    scored2 += serve_timeline(engine, TRAIN_PATIENT + 1000, wins, k_swap * per, n_chunks * per)
+    versions = [e.program_version for e in scored2]
+    if versions != [0] * k_swap + [version] * (n_chunks - k_swap):
+        fail(f"program_version stamps wrong: {versions}")
+    res2 = pipeline.evaluate_timeline(fitted2, timeline, cfg)
+    combined = torch.cat([res.chunk_preds[:k_swap], res2.chunk_preds[k_swap:n_chunks]])
+    want = pipeline.alarm_state(combined, cfg).tolist()
+    if [e.alarm for e in scored2] != want:
+        fail(f"post-swap alarms {[e.alarm for e in scored2]} != composite oracle {want}")
+    changed = int((res.chunk_preds != res2.chunk_preds).sum())
+    print(f"retrain + swap: refit in {stages2['fit']:.3f} s; v{version} live after chunk "
+          f"{k_swap}/{n_chunks}; version stamps and composite alarms exact ({changed} chunk "
+          "votes differ between the programs)")
+    return rows, hist_launches
+
+
+def print_kernel_rows(rows: dict) -> None:
+    for name, r in rows.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"kernel {name}: {r['shape']}: max_abs_err {r['max_abs_err']:.3e} "
+              f"(tol {r['tol']:.3e}{'; ' + r['note'] if 'note' in r else ''}); "
+              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib}, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
 def main() -> int:
     import torch
 
@@ -546,7 +800,7 @@ def main() -> int:
               f"launches {counts}")
         if stats["chunks"] != N_SESSIONS * CHUNKS_PER_SESSION:
             fail(f"scored {stats['chunks']} chunks, expected {N_SESSIONS * CHUNKS_PER_SESSION}")
-        if min(counts.values()) == 0:
+        if min(counts[k] for k in launches) == 0:
             fail(f"a kernel of the path never launched: {counts}")
         for k in launches:
             launches[k] += counts[k]
@@ -564,13 +818,20 @@ def main() -> int:
         print(f"stage {stage}: {ms:.3f} ms")
     trace_step(program, traffic)
 
-    sources = {"forest": "forest.cu", "wpd_level": "wpd_level.cu", "gram": "gram.cu"}
+    # Phase 6.
+    hist_rows, launches["histogram"] = training_phase(gen, program)
+    rows.update(hist_rows)
+
+    sources = {"forest": "forest.cu", "wpd_level": "wpd_level.cu", "gram": "gram.cu",
+               "histogram": "histogram.cu"}
     replaces = {
         "forest": "src/repro/kernels/forest/kernel.py:73",
         "wpd_level": "src/repro/kernels/wpd/kernel.py:86",
         "gram": "src/repro/kernels/gram/kernel.py:66",
+        "histogram": "src/repro/kernels/histogram/kernel.py:77",
     }
-    main_rows = {"forest": "forest", "wpd_level": "wpd_level/2048", "gram": "gram/1024x180"}
+    main_rows = {"forest": "forest", "wpd_level": "wpd_level/2048", "gram": "gram/1024x180",
+                 "histogram": f"histogram/{max(int(k.split('/')[1]) for k in hist_rows)}"}
     line = {"kernels": [
         {
             "name": k, "route": "cuda",

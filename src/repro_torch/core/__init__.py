@@ -1,3 +1,9 @@
-from repro_torch.core import pca, rotation_forest
+from repro_torch.core import (
+    decision_tree,
+    forest_trainer,
+    mapreduce,
+    pca,
+    rotation_forest,
+)
 
-__all__ = ["pca", "rotation_forest"]
+__all__ = ["decision_tree", "forest_trainer", "mapreduce", "pca", "rotation_forest"]

@@ -7,6 +7,6 @@ contract) and ``ops.py`` (routes a CPU tensor to the plain version and a
 CUDA tensor to the kernel).
 """
 
-from repro_torch.kernels import build, forest, gram, wpd
+from repro_torch.kernels import build, forest, gram, histogram, wpd
 
-__all__ = ["build", "forest", "gram", "wpd"]
+__all__ = ["build", "forest", "gram", "histogram", "wpd"]

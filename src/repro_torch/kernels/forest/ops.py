@@ -1,8 +1,14 @@
-"""Public fused rotation-forest inference over a packed forest (K1)."""
+"""Public fused rotation-forest inference over a packed forest (K1):
+``pack_forest`` lowers a fitted forest into the dense tensors of ref.py
+once, ``forest_predict_proba`` traverses a batch through them.
+
+This module imports nothing of ``repro_torch.core`` (the core imports
+it); ``pack_forest`` reads the fitted params structurally.
+"""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +32,37 @@ class PackedForest(NamedTuple):
     @property
     def n_features(self) -> int:
         return self.proj.shape[1]
+
+
+def pack_forest(params: Any) -> PackedForest:
+    """A fitted forest -> ``PackedForest``, by exact gathers.
+
+    ``params`` has ``.rotation`` (T, F, F) and ``.trees`` with
+    ``split_feature`` (T, L), ``split_bin`` (T, L), ``leaf_probs``
+    (T, L, C) and ``bin_edges`` (T, F, E). Node i's column of ``proj`` is
+    the rotation column of its split feature, and its ``thr`` is the bin
+    edge of its split: going right in bin space (code > split_bin, codes
+    binned side left) is exactly going right in raw space (value > edge).
+    A dead node (no split: feature -1, bin = n_bins) gets ``thr = +inf``
+    and always routes left.
+    """
+    rot = params.rotation.to(torch.float32)
+    feat = params.trees.split_feature
+    sbin = params.trees.split_bin
+    edges = params.trees.bin_edges.to(torch.float32)
+    n_feat, n_edges = rot.shape[-1], edges.shape[-1]
+
+    safe_feat = feat.clamp(0, n_feat - 1).to(torch.int64)
+    proj = torch.gather(rot, 2, safe_feat[:, None, :].expand(-1, rot.shape[1], -1))
+    safe_bin = sbin.clamp(0, n_edges - 1).to(torch.int64)
+    edges_at_feat = torch.gather(edges, 1, safe_feat[:, :, None].expand(-1, -1, n_edges))
+    thr = torch.gather(edges_at_feat, 2, safe_bin[:, :, None])[..., 0]
+    dead = (feat < 0) | (sbin >= n_edges)
+    thr = torch.where(dead, torch.inf, thr)
+    return PackedForest(
+        proj=proj.contiguous(), thr=thr.contiguous(),
+        leaf_probs=params.trees.leaf_probs.to(torch.float32).contiguous(),
+    )
 
 
 def forest_predict_proba(packed: PackedForest, x: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,3 @@
+"""Command-line entry points of the port (``python -m repro_torch.launch.<name>``)."""
+
+__all__: list[str] = []

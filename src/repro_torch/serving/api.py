@@ -18,8 +18,10 @@
   events from ``engine.poll()``.
 
 The engine's state lives on its device (CUDA unless ``device="cpu"`` is
-asked for). Snapshot/restore, ``swap_program`` and mesh sharding of the
-reference engine are not ported yet (ROADMAP.md).
+asked for). ``swap_program`` installs a retrained program into the
+running engine and bumps the ``program_version`` every ``ChunkScored``
+carries. Snapshot/restore and mesh sharding of the reference engine are
+not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -34,11 +36,12 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import store as ckpt_store
+from repro_torch.core import rotation_forest as rf
 from repro_torch.core.rotation_forest import RotationForestConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.forest import ops as forest_ops
 from repro_torch.signal import eeg_data, features, frontend
-from repro_torch.signal.pipeline import PipelineConfig, check_supported
+from repro_torch.signal.pipeline import FittedPipeline, PipelineConfig, check_supported
 
 
 # ---------------------------------------------------------------------------
@@ -87,6 +90,17 @@ class ScoringProgram:
     feat_mean: torch.Tensor
     feat_std: torch.Tensor
     cfg: PipelineConfig
+
+    @classmethod
+    def from_fitted(cls, fitted: FittedPipeline, cfg: PipelineConfig) -> "ScoringProgram":
+        """Lower a trained ``FittedPipeline`` into the serving artifact: the
+        one place the serving path packs a forest."""
+        return cls(
+            packed=rf.pack(fitted.forest),
+            feat_mean=fitted.feat_mean,
+            feat_std=fitted.feat_std,
+            cfg=cfg,
+        )
 
     def _arrays(self) -> dict[str, torch.Tensor]:
         return {
@@ -431,7 +445,7 @@ class SeizureEngine:
             raise ValueError(f"replay_depth={replay_depth} must be >= 1")
         check_supported(program.cfg)
         self.device = resolve_device(device)
-        self.program = program.to(self.device)
+        self.program = self._install_program(program)
         self.max_batch = max_batch
         self.chunk_windows = chunk_windows
         self.replay_depth = replay_depth
@@ -449,6 +463,47 @@ class SeizureEngine:
         self._state = init_state(
             max_batch, self.alarm_m, overlap=program.cfg.overlap, device=self.device
         )
+
+    # -- program install / hot-swap ------------------------------------------
+
+    def _install_program(self, program: ScoringProgram) -> ScoringProgram:
+        """The program with contiguous float32 leaves on the engine's
+        device: the one path both the constructor and ``swap_program`` take."""
+        return program.to(self.device)
+
+    def swap_program(self, new_program: ScoringProgram, *, version: int | None = None) -> int:
+        """Install a retrained ``ScoringProgram`` into the RUNNING engine,
+        with no session drained: alarm rings and frontend context stay,
+        and the next ``poll`` scores with the new forest, every
+        ``ChunkScored`` from then on carrying the new ``program_version``.
+        A program whose config or leaf shapes and types differ from the
+        serving one is refused with a ``ValueError`` before anything
+        changes (it needs a new engine, as in the reference).
+
+        Returns the now-serving version (``version`` if given, else the
+        running version + 1).
+        """
+        if new_program.cfg != self.program.cfg:
+            raise ValueError(
+                "swap_program: new program's PipelineConfig differs from "
+                f"the serving one ({new_program.cfg} != {self.program.cfg}); "
+                "open a new engine instead"
+            )
+        old, new = self.program._arrays(), new_program._arrays()
+        mismatched = [
+            f"{k}: {tuple(new[k].shape)}/{new[k].dtype} != "
+            f"{tuple(old[k].shape)}/{old[k].dtype}"
+            for k in old
+            if tuple(new[k].shape) != tuple(old[k].shape) or new[k].dtype != old[k].dtype
+        ]
+        if mismatched:
+            raise ValueError(
+                "swap_program: packed shapes must match the serving program; "
+                "mismatched leaves: " + "; ".join(mismatched)
+            )
+        self.program = self._install_program(new_program)
+        self.program_version = self.program_version + 1 if version is None else int(version)
+        return self.program_version
 
     # -- sessions ------------------------------------------------------------
 

@@ -6,7 +6,8 @@ generator draws its two anchor patients from ``jax.random``; those draws
 are carried here as literals, conditioned by patient parity and ``mix``
 exactly as the reference does. Noise and phases come from a
 ``torch.Generator``, so only the statistics match the reference, never
-the bits.
+the bits. The recording functions draw their parts from one generator in
+turn, where the reference splits its key.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 FS = 256            # Hz
@@ -74,6 +76,8 @@ def generate_windows(
     parameterizes the drift toward onset (later windows are closer)."""
     pp = patient_params(patient_id)
     dev = generator.device
+    if n_windows == 0:  # draws nothing
+        return torch.zeros((0, N_CHANNELS, WINDOW), dtype=torch.float32, device=dev)
     t = torch.arange(n_windows * WINDOW, dtype=torch.float32, device=dev) / FS
     t = t.reshape(n_windows, WINDOW)
     phases = torch.rand(
@@ -112,3 +116,79 @@ def generate_windows(
             sig = 4.0 * pp.alpha_amp * spikes + 0.5 * alpha + noise * 0.5
         chans.append(sig.to(torch.float32))
     return torch.stack(chans, dim=1)
+
+
+class Recording(NamedTuple):
+    """A labeled, windowed recording: the unit the pipeline consumes."""
+
+    windows: torch.Tensor  # (W, C, WINDOW) float32
+    labels: torch.Tensor   # (W,) int32, 0 = interictal, 1 = preictal/ictal
+
+
+def _labels(n_zeros: int, n_ones: int, device) -> torch.Tensor:
+    return torch.cat([
+        torch.zeros((n_zeros,), dtype=torch.int32, device=device),
+        torch.ones((n_ones,), dtype=torch.int32, device=device),
+    ])
+
+
+def make_training_set(
+    generator: torch.Generator,
+    patient_id: int,
+    n_interictal_windows: int = 120,
+    n_preictal_windows: int = 120,
+) -> Recording:
+    """Balanced training recording (Sec. 2.6): interictal windows, then
+    the preictal run-up, on the generator's device."""
+    inter = generate_windows(generator, patient_id, INTERICTAL, n_interictal_windows)
+    pre = generate_windows(generator, patient_id, PREICTAL, n_preictal_windows)
+    return Recording(
+        windows=torch.cat([inter, pre]),
+        labels=_labels(n_interictal_windows, n_preictal_windows, generator.device),
+    )
+
+
+def stratify_chunks(recording: Recording, per: int = WINDOWS_PER_MATRIX) -> Recording:
+    """Reorder whole ``per``-window chunks so the classes spread evenly.
+
+    ``make_training_set`` lays out every interictal window before every
+    preictal one, so contiguous MapReduce shards of it would each hold one
+    class. Each class's chunks are placed at even fractional strides
+    ((i + 0.5) / k_class) and the order sorts those positions (stable), so
+    chunk-aligned shards stay as mixed as the class ratio allows. Chunks
+    are never split; trailing sub-chunk windows stay at the end. The order
+    is computed in numpy exactly as the reference computes it.
+    """
+    w = recording.windows.shape[0]
+    n = w // per
+    if n < 2:
+        return recording
+    labs = recording.labels[: n * per].cpu().numpy().reshape(n, per)
+    major = labs.mean(axis=1) > 0.5
+    by_class = [np.where(~major)[0], np.where(major)[0]]
+    idx = np.concatenate([c for c in by_class if len(c)])
+    pos = np.concatenate([(np.arange(len(c)) + 0.5) / len(c) for c in by_class if len(c)])
+    order = idx[np.argsort(pos, kind="stable")]
+    win_idx = (order[:, None] * per + np.arange(per)[None, :]).reshape(-1)
+    win_idx = np.concatenate([win_idx, np.arange(n * per, w)])
+    index = torch.from_numpy(win_idx).to(recording.windows.device)
+    return Recording(windows=recording.windows[index], labels=recording.labels[index])
+
+
+def make_test_timeline(
+    generator: torch.Generator,
+    patient_id: int,
+    hours_interictal: int = 2,
+    minutes_preictal: int = 48,
+) -> Recording:
+    """A chronological test stream: hours of interictal EEG, then the
+    preictal run-up and 8 windows of the seizure (the Figs. 3-10
+    protocol), in temporal order on the generator's device."""
+    w_inter = hours_interictal * 450  # 450 8-second windows per hour
+    w_pre = minutes_preictal * 60 // 8
+    windows = torch.cat([
+        generate_windows(generator, patient_id, INTERICTAL, w_inter),
+        generate_windows(generator, patient_id, PREICTAL, w_pre),
+        generate_windows(generator, patient_id, ICTAL, 8),
+    ])
+    return Recording(windows=windows, labels=_labels(w_inter, w_pre + 8, generator.device))

@@ -2,9 +2,10 @@
 
 The twin of ``repro.signal.frontend``. ``FrontendState`` carries each
 stream's context (the last ``max(1, overlap)`` RAW windows and the chunk
-phase); ``frontend_step`` consumes one chunk per stream, and
-``megabatch_step`` consumes a (B, D) backlog in one batched heavy pass,
-taking each chunk's halo from its predecessor in the backlog itself.
+phase); ``frontend_step`` consumes one chunk per stream, ``scan_stream``
+a stream of chunks one after the other, and ``megabatch_step`` a (B, D)
+backlog in one batched heavy pass, taking each chunk's halo from its
+predecessor in the backlog itself.
 Batch axes are written out where the reference used ``vmap``.
 """
 
@@ -30,6 +31,23 @@ class FrontendState(NamedTuple):
 def boundary_width(overlap: int) -> int:
     """Carried boundary windows for an overlap setting (always >= 1)."""
     return max(1, overlap)
+
+
+def init_state(
+    n_channels: int = eeg_data.N_CHANNELS,
+    window: int = eeg_data.WINDOW,
+    overlap: int = 0,
+    *,
+    device: torch.device | str,
+) -> FrontendState:
+    """Zero context: a stream that has not produced a chunk yet."""
+    return FrontendState(
+        boundary=torch.zeros(
+            (boundary_width(overlap), n_channels, window),
+            dtype=torch.float32, device=device,
+        ),
+        phase=torch.zeros((), dtype=torch.int32, device=device),
+    )
 
 
 def init_batch(
@@ -122,6 +140,20 @@ def frontend_step(
         [state.boundary, chunk_windows.to(torch.float32)], dim=-3
     )[..., -bw:, :, :]
     return FrontendState(boundary=boundary, phase=state.phase + 1), feats
+
+
+def scan_stream(
+    state: FrontendState, chunks: torch.Tensor, cfg
+) -> tuple[FrontendState, torch.Tensor]:
+    """``frontend_step`` over a (n_chunks, W, C, N) stream, one chunk after
+    the other (the reference's ``lax.scan``). Returns the final state and
+    the (n_chunks, W, F) feature rows; ``pipeline.process_windows`` runs
+    on it."""
+    feats = []
+    for chunk in chunks:
+        state, f = frontend_step(state, chunk, cfg)
+        feats.append(f)
+    return state, torch.stack(feats)
 
 
 def megabatch_step(

@@ -1,4 +1,5 @@
-"""The port's kernel packages (K1 forest, K2 wpd_level, K3 gram) on the CPU.
+"""The port's kernel packages (K1 forest, K2 wpd_level, K3 gram, K4
+histogram) on the CPU.
 
 Each plain PyTorch version is held to the JAX package's ``ref.py`` on the
 same numpy-seeded inputs; the CUDA kernels themselves run only on the
@@ -16,6 +17,10 @@ Tolerances:
     to 1e-6 and the argmax is equal wherever the routing margin
     ``min |x . proj - thr|`` along the path exceeds 1e-4 (a float32
     matmul of length F can move a split value by ~1e-6 of its scale).
+  * histogram: exactly equal on 0/1 class masses (every sum is an integer
+    below 2**24, so the scatter and the reference's one-hot slab matmuls
+    agree whatever their order); within 1e-6 relative on float masses
+    (other summation order).
 """
 
 from __future__ import annotations
@@ -32,6 +37,9 @@ import torch
 
 from repro.kernels.forest import ref as jforest_ref
 from repro.kernels.gram import ref as jgram_ref
+from repro.kernels.histogram import kernel as jhist_kernel
+from repro.kernels.histogram import ops as jhist_ops
+from repro.kernels.histogram import ref as jhist_ref
 from repro.kernels.wpd import ref as jwpd_ref
 from repro.signal import wavelet as jwavelet
 from repro_torch.kernels.forest import kernel as forest_kernel
@@ -39,6 +47,8 @@ from repro_torch.kernels.forest import ops as forest_ops
 from repro_torch.kernels.forest import ref as forest_ref
 from repro_torch.kernels.gram import kernel as gram_kernel
 from repro_torch.kernels.gram import ops as gram_ops
+from repro_torch.kernels.histogram import kernel as hist_kernel
+from repro_torch.kernels.histogram import ops as hist_ops
 from repro_torch.kernels.wpd import kernel as wpd_kernel
 from repro_torch.kernels.wpd import ops as wpd_ops
 from repro_torch.signal import wavelet
@@ -183,12 +193,73 @@ def test_gram_batched_and_transposed_view():
 
 
 # ---------------------------------------------------------------------------
+# K4 histogram
+# ---------------------------------------------------------------------------
+
+def _hist_inputs(seed, t, n, f, n_buckets, c, masses):
+    """Codes in [-2, n_buckets + 2): some below 0 and some >= n_buckets,
+    which match no bucket. ``masses`` "01" gives one-hot class masses
+    under a 0/1 bootstrap mask, as the grower's; "float" random weights."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(-2, n_buckets + 2, size=(t, n, f)).astype(np.int32)
+    if masses == "01":
+        y = rng.integers(0, c, size=n)
+        w = (rng.random((t, n)) < 0.75).astype(np.float32)
+        wy = w[..., None] * np.eye(c, dtype=np.float32)[y]
+    else:
+        wy = rng.random((t, n, c)).astype(np.float32)
+    return codes, wy
+
+
+@pytest.mark.parametrize("masses", ["01", "float"])
+@pytest.mark.parametrize("t,n,f,n_buckets", [(3, 300, 5, 40), (1, 17, 4, 33)])
+def test_class_histogram_plain_matches_jax(t, n, f, n_buckets, masses):
+    """N = 300 is ragged against the reference's block_n = 256."""
+    codes, wy = _hist_inputs(n + f, t, n, f, n_buckets, 2, masses)
+    jc, jw = jnp.asarray(codes), jnp.asarray(wy)
+    want_ref = np.asarray(jhist_ref.class_histogram(jc, jw, n_buckets))
+    want_kernel = np.asarray(jhist_kernel.class_histogram(
+        jc, jw, n_buckets=n_buckets, interpret=True
+    ))
+    got = hist_ops.class_histogram(torch.from_numpy(codes), torch.from_numpy(wy), n_buckets)
+    assert got.shape == (t, f, n_buckets, 2) and got.dtype == torch.float32
+    got = got.numpy()
+    if masses == "01":
+        np.testing.assert_array_equal(got, want_ref)
+        np.testing.assert_array_equal(got, want_kernel)
+    else:
+        _close(got, want_ref, 1e-6)
+        _close(got, want_kernel, 1e-6)
+
+
+def test_level_histogram_matches_jax():
+    """The grower-shaped wrapper: codes = local * n_bins + bin and
+    wy = w * onehot(y), on a 0/1 bootstrap mask (exact)."""
+    rng = np.random.default_rng(12)
+    t, n, f, nodes_at, n_bins, n_classes = 3, 300, 6, 4, 8, 3
+    xb = rng.integers(0, n_bins, size=(t, n, f)).astype(np.int32)
+    local = rng.integers(0, nodes_at, size=(t, n)).astype(np.int32)
+    y = rng.integers(0, n_classes, size=n).astype(np.int32)
+    w = (rng.random((t, n)) < 0.75).astype(np.float32)
+    want = np.asarray(jhist_ops.level_histogram(
+        *map(jnp.asarray, (xb, local, y, w)), nodes_at=nodes_at, n_bins=n_bins,
+        n_classes=n_classes, use_pallas=False,
+    ))
+    got = hist_ops.level_histogram(
+        *map(torch.from_numpy, (xb, local, y, w)), nodes_at=nodes_at, n_bins=n_bins,
+        n_classes=n_classes,
+    ).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
 # Routing: CPU tensors take the plain version; kernels refuse them
 # ---------------------------------------------------------------------------
 
 def test_kernel_wrappers_refuse_cpu_tensors_without_counting():
     x = torch.zeros(4, 16)
-    counts = (forest_kernel.LAUNCHES, wpd_kernel.LAUNCHES, gram_kernel.LAUNCHES)
+    kernels = (forest_kernel, wpd_kernel, gram_kernel, hist_kernel)
+    counts = tuple(k.LAUNCHES for k in kernels)
     with pytest.raises(ValueError):
         wpd_kernel.wpd_level(x, *wavelet.filters("db4"))
     with pytest.raises(ValueError):
@@ -197,9 +268,13 @@ def test_kernel_wrappers_refuse_cpu_tensors_without_counting():
         forest_kernel.forest_traverse(
             x, torch.zeros(1, 16, 4), torch.zeros(1, 4), torch.zeros(1, 4, 2)
         )
-    assert (forest_kernel.LAUNCHES, wpd_kernel.LAUNCHES, gram_kernel.LAUNCHES) == counts
+    codes = torch.zeros((1, 4, 16), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        hist_kernel.class_histogram(codes, torch.zeros(1, 4, 2), 8)
+    assert tuple(k.LAUNCHES for k in kernels) == counts
     # The ops route the same CPU tensors to the plain versions.
     assert gram_ops.gram(x).shape == (16, 16)
+    assert hist_ops.class_histogram(codes, torch.ones(1, 4, 2), 8).shape == (1, 16, 8, 2)
     assert wpd_ops.wpd_level(x, *wavelet.filters("db4"))[0].shape == (4, 8)
 
 
@@ -209,7 +284,7 @@ def test_kernel_library_is_keyed_by_the_sources():
     path = build.library_path()
     assert path.parent == ROOT / "build" / "repro_torch"
     assert path == build.library_path()
-    assert {p.name for p in build._sources()} >= {"forest.cu", "gram.cu", "wpd_level.cu"}
+    assert {p.name for p in build._sources()} >= {"forest.cu", "gram.cu", "histogram.cu", "wpd_level.cu"}
 
 
 # ---------------------------------------------------------------------------
