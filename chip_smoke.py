@@ -27,9 +27,17 @@ Phases (any failure exits non-zero):
      share, device time by kernel).
   6. Training: a MapReduce fit of the default ``PipelineConfig`` (10
      trees of depth 6, 32 bins, F = 288) over 2 shards of 16 + 16
-     stratified generated chunks, timed by stage; K4 must launch once per
-     level and shard (12 times), and equal its plain version exactly on
-     the grower's 0/1 masses (and within 1e-5 relative on float weights).
+     stratified generated chunks, timed by stage (feature extraction and
+     its MSPCA eigh, K2 and K3 calls; rotation and its eigh; grower and
+     its K4 calls). K2 and K3 are held against their plain versions on
+     every input shape the fit gave them, and one shard's training
+     features through the kernels may lie at most twice as far from the
+     host CPU's features as the plain path's do (z-units, 99th and 99.9th
+     percentile).
+     K4 must launch once per level and shard (12 times), and equal its
+     plain version exactly on the grower's 0/1 masses (and within 1e-5
+     relative on float weights), and on a 65536-bucket histogram built in
+     shared-memory slices.
      The fit is checkpointed, reloaded and served on a held-out timeline
      (1 h interictal, the 48-minute run-up, the seizure) pushed 37
      windows at a time; the served alarms must equal
@@ -169,18 +177,76 @@ def path_walk(x, packed):
     return out, live
 
 
+def wpd_row(xr) -> dict:
+    """K2 against its plain version on xr (rows, N) with the db4 filters
+    (max abs error <= 1e-5 * max|x|), timed beside conv1d and its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.wpd import kernel as wk, ref as wr
+    from repro_torch.signal import wavelet
+
+    h, g = wavelet.filters("db4")  # host taps, as the wavelet module passes them
+    weight = torch.stack([h, g])[:, None, :].to(xr.device)  # (2, 1, taps)
+    taps = h.shape[0]
+    (ka, kd), (pa, pd) = wk.wpd_level(xr, h, g), wr.wpd_level(xr, h, g)
+    torch.cuda.synchronize()
+    err = max(float((ka - pa).abs().max()), float((kd - pd).abs().max()))
+    tol = 1e-5 * float(xr.abs().max())
+    if not err <= tol:
+        fail(f"wpd_level kernel {tuple(xr.shape)} disagrees with its plain version: "
+             f"{err} > {tol}")
+
+    def conv():
+        return F.conv1d(F.pad(xr[:, None, :], (0, taps - 2), mode="circular"),
+                        weight, stride=2)
+
+    b_ms, b_by = bound_ms(4 * 2 * xr.numel(), 2.0 * taps * xr.numel())
+    return dict(
+        shape=f"x {tuple(xr.shape)}", max_abs_err=err, tol=tol,
+        ms=time_ms(lambda: wk.wpd_level(xr, h, g)),
+        plain_ms=time_ms(lambda: wr.wpd_level(xr, h, g)),
+        library_ms=time_ms(conv), bound_ms=b_ms, bound_by=b_by,
+    )
+
+
+def gram_row(xv) -> dict:
+    """K3 against its plain version on xv (..., n, P), as given (pca.fit_T
+    hands over a transposed view): max abs error <= 1e-5 * max|G|, timed
+    beside torch.matmul and its bound."""
+    import torch
+
+    from repro_torch.kernels.gram import kernel as gk, ref as gr
+
+    got, want = gk.gram(xv), gr.gram(xv)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    tol = 1e-5 * float(want.abs().max())
+    if not err <= tol:
+        fail(f"gram kernel {tuple(xv.shape)} disagrees with its plain version: "
+             f"{err} > {tol}")
+    n, p = xv.shape[-2:]
+    batch = xv.numel() // (n * p)
+    # G is symmetric: p (p + 1) / 2 sums of n products per matrix.
+    b_ms, b_by = bound_ms(4 * (xv.numel() + batch * p * p), 1.0 * batch * n * p * (p + 1))
+    view = "" if xv.is_contiguous() else " (transposed view)"
+    return dict(
+        shape=f"x {tuple(xv.shape)}{view}", max_abs_err=err, tol=tol,
+        ms=time_ms(lambda: gk.gram(xv)),
+        plain_ms=time_ms(lambda: gr.gram(xv)),
+        library_ms=time_ms(lambda: torch.matmul(xv.transpose(-1, -2), xv)),
+        bound_ms=b_ms, bound_by=b_by,
+    )
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def check_kernels(program, gen) -> dict[str, dict]:
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.forest import kernel as fk, ref as fr
-    from repro_torch.kernels.gram import kernel as gk, ref as gr
-    from repro_torch.kernels.wpd import kernel as wk, ref as wr
-    from repro_torch.signal import wavelet
 
     dev = torch.device("cuda")
     rows = {}
@@ -219,51 +285,15 @@ def check_kernels(program, gen) -> dict[str, dict]:
 
     # K2: the first WPD level of one step (5760 rows of 2048) and the
     # second (1024); MSPCA's DWT runs the same operator.
-    h, g = wavelet.filters("db4")
-    weight = torch.stack([h, g])[:, None, :].to(dev)  # (2, 1, taps)
-    taps = h.shape[0]
     for n in (2048, 1024):
         xr = torch.randn((MAX_BATCH * REPLAY_DEPTH * 60 * 3, n), generator=gen, device=dev)
-        (ka, kd), (pa, pd) = wk.wpd_level(xr, h, g), wr.wpd_level(xr, h, g)
-        torch.cuda.synchronize()
-        err = max(float((ka - pa).abs().max()), float((kd - pd).abs().max()))
-        tol = 1e-5 * float(xr.abs().max())
-
-        def conv(xr=xr):
-            return F.conv1d(F.pad(xr[:, None, :], (0, taps - 2), mode="circular"),
-                            weight, stride=2)
-
-        b_ms, b_by = bound_ms(4 * 2 * xr.numel(), 2.0 * taps * xr.numel())
-        rows[f"wpd_level/{n}"] = dict(
-            shape=f"x {tuple(xr.shape)}", max_abs_err=err, tol=tol,
-            ms=time_ms(lambda: wk.wpd_level(xr, h, g)),
-            plain_ms=time_ms(lambda: wr.wpd_level(xr, h, g)),
-            library_ms=time_ms(conv), bound_ms=b_ms, bound_by=b_by,
-        )
-        if not err <= tol:
-            fail(f"wpd_level kernel (N={n}) disagrees with its plain version: {err} > {tol}")
+        rows[f"wpd_level/{n}"] = wpd_row(xr)
 
     # K3: MSPCA's finest and coarsest per-scale covariances of one step,
     # passed as the transposed view pca.fit_T hands over.
     for n, p in ((1024, 180), (64, 186)):
         xt = torch.randn((MAX_BATCH * REPLAY_DEPTH, p, n), generator=gen, device=dev)
-        xv = xt.transpose(1, 2)
-        got, want = gk.gram(xv), gr.gram(xv)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        tol = 1e-5 * float(want.abs().max())
-        # G is symmetric: p (p + 1) / 2 sums of n products per matrix.
-        b_ms, b_by = bound_ms(4 * (xt.numel() + xt.shape[0] * p * p),
-                              1.0 * xt.shape[0] * n * p * (p + 1))
-        rows[f"gram/{n}x{p}"] = dict(
-            shape=f"x {tuple(xv.shape)} (transposed view)", max_abs_err=err, tol=tol,
-            ms=time_ms(lambda: gk.gram(xv)),
-            plain_ms=time_ms(lambda: gr.gram(xv)),
-            library_ms=time_ms(lambda: torch.matmul(xv.transpose(1, 2), xv)),
-            bound_ms=b_ms, bound_by=b_by,
-        )
-        if not err <= tol:
-            fail(f"gram kernel ({n}x{p}) disagrees with its plain version: {err} > {tol}")
+        rows[f"gram/{n}x{p}"] = gram_row(xt.transpose(1, 2))
 
     print_kernel_rows(rows)
     return rows
@@ -551,26 +581,36 @@ def training_set(gen):
 
 
 def timed_fit(gen, rec, cfg):
-    """One MapReduce fit with its stage times (seconds) and the K4 inputs
-    of the last shard's levels, by bucket count."""
+    """One MapReduce fit with its stage times (seconds) and the kernels'
+    inputs as the fit handed them over: {"histogram": {n_buckets: (codes,
+    wy)}, "wpd_level": {shape: x}, "gram": {shape: x}}, the last call per
+    bucket count and the first per shape."""
     import torch
 
     from repro_torch.core import decision_tree as dt
+    from repro_torch.core import pca
     from repro_torch.core import rotation_forest as rf
+    from repro_torch.kernels.gram import kernel as gk
     from repro_torch.kernels.histogram import ops as hist_ops
+    from repro_torch.kernels.wpd import kernel as wk
     from repro_torch.signal import pipeline
 
     stages: dict[str, float] = {}
-    captured: dict[int, tuple] = {}
+    captured: dict[str, dict] = {"histogram": {}, "wpd_level": {}, "gram": {}}
     with contextlib.ExitStack() as stack:
         for owner, name, label, hook in (
             (pipeline, "process_windows", "feature extraction (MSPCA + WPD)", None),
+            (pca, "_eig_sorted", "of which MSPCA eigh (pca._eig_sorted)", None),
+            (wk, "wpd_level", "of which K2 wpd_level (DWT and WPD levels)",
+             lambda a: captured["wpd_level"].setdefault(tuple(a[0].shape), a[0])),
+            (gk, "gram", "of which K3 gram (MSPCA covariances)",
+             lambda a: captured["gram"].setdefault(tuple(a[0].shape), a[0])),
             (rf, "_prepare_trees", "tree prep (rotation, x @ R, binning)", None),
             (rf, "_build_rotation", "of which rotation", None),
             (rf, "_block_components", "of which rotation eigh", None),
             (dt, "fit_forest_binned", "grower", None),
             (hist_ops, "class_histogram", "of which K4 histogram",
-             lambda a: captured.__setitem__(a[2], (a[0], a[1]))),
+             lambda a: captured["histogram"].__setitem__(a[2], (a[0], a[1]))),
         ):
             stack.enter_context(stage_clock(stages, owner, name, label, hook))
         torch.cuda.synchronize()
@@ -579,6 +619,58 @@ def timed_fit(gen, rec, cfg):
         torch.cuda.synchronize()
         stages["fit"] = time.perf_counter() - t0
     return fitted, stages, captured
+
+
+def _z_units(got, want) -> dict[str, float]:
+    """|got - want| over want's per-feature std: max, 99.9th and 99th
+    percentile, and median over all entries."""
+    import torch
+
+    z = ((got - want).abs() / (want.std(dim=0) + 1e-6)).flatten()
+    q = torch.quantile(z, torch.tensor([0.5, 0.99, 0.999], device=z.device)).tolist()
+    return dict(max=float(z.max()), p999=q[2], p99=q[1], median=q[0])
+
+
+def check_fit_features(captured, rec, cfg) -> None:
+    """K2 and K3 against their plain versions on every input shape the fit
+    handed them (the tolerances of phase 2); then one shard's training
+    features three ways: through the kernels, through the plain versions
+    on the card, and through the port on the host CPU (LAPACK's eigh,
+    the path the CPU tests hold to the reference). MSPCA's eigh turns the
+    float32 rounding differences of any two paths into feature
+    differences, largest in the chunks whose kept subspace is nearly
+    degenerate, so the kernel path is held to the card's own plain path:
+    its distance from the CPU features, in z-units (difference over the
+    CPU features' per-feature std), may be at most twice the plain
+    path's at the 99th and the 99.9th percentile. A kernel that is wrong
+    everywhere moves the first, one wrong in a feature or a chunk the
+    second."""
+    from repro_torch.signal import pipeline
+
+    rows = {f"wpd_level/fit {tuple(x.shape)}": wpd_row(x)
+            for x in captured["wpd_level"].values()}
+    rows.update({f"gram/fit {tuple(x.shape)}": gram_row(x)
+                 for x in captured["gram"].values()})
+    print_kernel_rows(rows)
+    shard = rec.windows[: rec.windows.shape[0] // TRAIN_SHARDS]
+    kernel = pipeline.process_windows(shard, cfg)
+    with plain_versions():
+        plain = pipeline.process_windows(shard, cfg)
+    host = pipeline.process_windows(shard.cpu(), cfg)
+    z = {
+        "kernel vs plain": _z_units(kernel, plain),
+        "kernel vs CPU": _z_units(kernel.cpu(), host),
+        "plain vs CPU": _z_units(plain.cpu(), host),
+    }
+    for pair, r in z.items():
+        print(f"train features, shard 0 ({shard.shape[0]} windows -> {tuple(kernel.shape)}), "
+              f"{pair}: z-units max {r['max']:.3e}, p99.9 {r['p999']:.3e}, "
+              f"p99 {r['p99']:.3e}, median {r['median']:.3e}")
+    for q in ("p99", "p999"):
+        if not z["kernel vs CPU"][q] <= 2 * z["plain vs CPU"][q]:
+            fail(f"training features through the kernels are {z['kernel vs CPU'][q]} z-units "
+                 f"({q}) from the CPU port's, more than twice the plain path's "
+                 f"{z['plain vs CPU'][q]}")
 
 
 def check_histogram(captured, gen) -> dict[str, dict]:
@@ -634,6 +726,20 @@ def check_histogram(captured, gen) -> dict[str, dict]:
             plain_ms=time_ms(lambda: hr.class_histogram(codes, wy, n_buckets)),
             library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by,
         )
+    # Beyond one block's shared memory: a depth-12 grower's deepest level
+    # at 32 bins (65536 buckets x 2 classes = 512 KB) is built in bucket
+    # slices. 16 features keep the output at 42 MB.
+    t, n, f, nb = 5, 960, 16, 65536
+    codes = torch.randint(-1, nb + 1, (t, n, f), generator=gen, device=gen.device,
+                          dtype=torch.int32)
+    boot = (torch.rand((t, n, 1), generator=gen, device=gen.device) < 0.632).float()
+    label = torch.randint(0, 2, (n,), generator=gen, device=gen.device)
+    wy = boot * torch.nn.functional.one_hot(label, 2).float()
+    err = float((hk.class_histogram(codes, wy, nb) - hr.class_histogram(codes, wy, nb)).abs().max())
+    print(f"kernel histogram/{nb}: codes {(t, n, f)}, in bucket slices: max_abs_err {err:.3e} "
+          "(tol 0)")
+    if err != 0.0:
+        fail(f"histogram kernel ({nb} buckets, sliced) differs from its plain version by {err}")
     print_kernel_rows(rows)
     return rows
 
@@ -651,8 +757,9 @@ def serve_timeline(engine, patient, windows, lo, hi) -> list:
     return [e for e in events if isinstance(e, api.ChunkScored)]
 
 
-def training_phase(gen, committed) -> tuple[dict, int]:
-    """Phase 6. Returns the K4 rows and K4's launches in the first fit."""
+def training_phase(gen, committed) -> tuple[dict, dict]:
+    """Phase 6. Returns the K4 rows and every kernel's launches in the
+    first fit."""
     import tempfile
 
     import torch
@@ -678,10 +785,12 @@ def training_phase(gen, committed) -> tuple[dict, int]:
             print(f"train stage {label}: {sec:.3f} s ({sec / stages['fit']:.1%} of the fit)")
     if counts["histogram"] != n_levels:
         fail(f"K4 launched {counts['histogram']} times in the fit, expected {n_levels}")
+    if min(counts[k] for k in ("wpd_level", "gram")) == 0:
+        fail(f"a feature kernel of the fit never launched: {counts}")
     if fitted.forest.rotation.shape[0] != cfg.forest.n_trees:
         fail(f"union forest has {fitted.forest.rotation.shape[0]} trees")
-    hist_launches = counts["histogram"]
-    rows = check_histogram(captured, gen)
+    check_fit_features(captured, rec, cfg)
+    rows = check_histogram(captured["histogram"], gen)
 
     # Checkpoint, reload, serve a held-out timeline.
     with tempfile.TemporaryDirectory(prefix="seizure_program_") as directory:
@@ -733,7 +842,7 @@ def training_phase(gen, committed) -> tuple[dict, int]:
     print(f"retrain + swap: refit in {stages2['fit']:.3f} s; v{version} live after chunk "
           f"{k_swap}/{n_chunks}; version stamps and composite alarms exact ({changed} chunk "
           "votes differ between the programs)")
-    return rows, hist_launches
+    return rows, counts
 
 
 def print_kernel_rows(rows: dict) -> None:
@@ -819,8 +928,9 @@ def main() -> int:
     trace_step(program, traffic)
 
     # Phase 6.
-    hist_rows, launches["histogram"] = training_phase(gen, program)
+    hist_rows, fit_counts = training_phase(gen, program)
     rows.update(hist_rows)
+    launches = {k: launches.get(k, 0) + fit_counts[k] for k in fit_counts}
 
     sources = {"forest": "forest.cu", "wpd_level": "wpd_level.cu", "gram": "gram.cu",
                "histogram": "histogram.cu"}

@@ -112,13 +112,13 @@ def fit_mapreduce(
         n_trees=trees_per_shard if trees_per_shard is not None
         else _shard_trees(cfg.n_trees, shards)
     )
-    xs, ys = x.chunk(shards), y.chunk(shards)
-    feats = [
-        (feature_fn(x_s) if feature_fn is not None else x_s).to(torch.float32) for x_s in xs
-    ]
-    mean, std = global_moments(feats)
+    extract = feature_fn if feature_fn is not None else (lambda x_s: x_s)
+    parts = mr.MapReduce(
+        lambda x_s, y_s: (extract(x_s).to(torch.float32), y_s), list
+    ).run_local(shards, x, y)
+    mean, std = global_moments([f for f, _ in parts])
     subs = [
         rf.fit(gen, (f - mean) / std, y_s, shard_cfg)
-        for gen, f, y_s in zip(shard_generators(generator, shards), feats, ys)
+        for gen, (f, y_s) in zip(shard_generators(generator, shards), parts)
     ]
     return DistributedFitResult(forest=mr.reduce_concat(subs), feat_mean=mean, feat_std=std)

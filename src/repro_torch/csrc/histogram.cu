@@ -20,7 +20,10 @@
 // order, so here one block owns one (tree, feature) pair: it zeroes an
 // n_buckets x C histogram in shared memory (8 KB at n_buckets = 1024, C = 2),
 // its threads stride over the samples and atomicAdd each sample's nonzero
-// class masses into it, and it stores the slice with one coalesced pass.
+// class masses into it, and it stores the histogram with one coalesced pass.
+// Where n_buckets x C floats exceed one block's 227 KB (depth 11 and deeper
+// at 32 bins, C = 2), a third grid axis splits the buckets into slices that
+// fit, and each slice's block reads all of its (tree, feature)'s samples.
 // Skipping zero masses changes no sum (the histogram starts at +0.0) and
 // halves the atomics for one-hot masses. In the grower every mass is 0 or 1,
 // so every partial sum is an integer below 2^24 and the atomics' order
@@ -45,11 +48,13 @@ constexpr int kMaxDevices = 64;
 __global__ void __launch_bounds__(kThreads)
 hist_kernel(const int* __restrict__ codes, const float* __restrict__ wy,
             float* __restrict__ out, int n, int f_dim, int n_classes,
-            int n_buckets) {
+            int n_buckets, int slice) {
   extern __shared__ float hist[];
   const int f = blockIdx.x;
   const int t = blockIdx.y;
-  const int size = n_buckets * n_classes;
+  const int lo = blockIdx.z * slice;
+  const int hi = min(lo + slice, n_buckets);
+  const int size = (hi - lo) * n_classes;
   for (int i = threadIdx.x; i < size; i += kThreads) hist[i] = 0.f;
   __syncthreads();
 
@@ -57,16 +62,17 @@ hist_kernel(const int* __restrict__ codes, const float* __restrict__ wy,
   const float* mass = wy + static_cast<long long>(t) * n * n_classes;
   for (int s = threadIdx.x; s < n; s += kThreads) {
     const int b = col[static_cast<long long>(s) * f_dim];
-    if (b < 0 || b >= n_buckets) continue;
+    if (b < lo || b >= hi) continue;
     const float* m = mass + static_cast<long long>(s) * n_classes;
     for (int c = 0; c < n_classes; ++c) {
       const float v = m[c];
-      if (v != 0.f) atomicAdd(&hist[b * n_classes + c], v);
+      if (v != 0.f) atomicAdd(&hist[(b - lo) * n_classes + c], v);
     }
   }
   __syncthreads();
 
-  float* o = out + (static_cast<long long>(t) * f_dim + f) * size;
+  float* o = out + ((static_cast<long long>(t) * f_dim + f) * n_buckets + lo) *
+                       n_classes;
   for (int i = threadIdx.x; i < size; i += kThreads) o[i] = hist[i];
 }
 
@@ -79,12 +85,19 @@ extern "C" int repro_class_histogram(const int* codes, const float* wy,
                                      float* out, int n_trees, int n, int f_dim,
                                      int n_classes, int n_buckets, int device,
                                      void* stream) {
-  const size_t smem =
-      static_cast<size_t>(n_buckets) * n_classes * sizeof(float);
   if (n_trees <= 0 || n_trees > 65535 || n <= 0 || f_dim <= 0 ||
-      n_classes <= 0 || n_buckets <= 0 || smem > kMaxSmem) {
+      n_classes <= 0 || n_buckets <= 0 ||
+      static_cast<size_t>(n_classes) * sizeof(float) > kMaxSmem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // The largest bucket slice whose histogram fits one block's shared memory;
+  // one slice (one block per (tree, feature)) whenever the whole fits.
+  const int max_slice =
+      static_cast<int>(kMaxSmem / (static_cast<size_t>(n_classes) * sizeof(float)));
+  const int slice = n_buckets < max_slice ? n_buckets : max_slice;
+  const int n_slices = (n_buckets + slice - 1) / slice;
+  if (n_slices > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(slice) * n_classes * sizeof(float);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   // Above 48 KB the opt-in is a property of the kernel on this device: set
@@ -100,8 +113,8 @@ extern "C" int repro_class_histogram(const int* codes, const float* wy,
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set[device] = smem;
   }
-  dim3 grid(f_dim, n_trees);
+  dim3 grid(f_dim, n_trees, n_slices);
   hist_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      codes, wy, out, n, f_dim, n_classes, n_buckets);
+      codes, wy, out, n, f_dim, n_classes, n_buckets, slice);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,7 @@ from repro_torch.kernels import build
 
 LAUNCHES = 0
 MAX_SMEM = 232448  # bytes of shared memory one block may opt in to
-MAX_TREES = 65535  # grid y
+MAX_GRID_YZ = 65535  # trees (grid y) and bucket slices (grid z)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
@@ -20,7 +20,8 @@ _ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 def class_histogram(codes: torch.Tensor, wy: torch.Tensor, n_buckets: int) -> torch.Tensor:
     """codes (T, N, F) contiguous int32, wy (T, N, C) contiguous float32,
     both on one CUDA device -> (T, F, n_buckets, C) float32; codes outside
-    ``[0, n_buckets)`` are skipped.
+    ``[0, n_buckets)`` are skipped. A histogram larger than one block's
+    shared memory is built in bucket slices, one block per slice.
 
     The samples of one (tree, feature) are summed with shared-memory
     atomics, in an order that changes from run to run. Where every partial
@@ -39,12 +40,13 @@ def class_histogram(codes: torch.Tensor, wy: torch.Tensor, n_buckets: int) -> to
         raise ValueError(f"histogram kernel: wy on {wy.device}, codes on {codes.device}")
     t, n, f = codes.shape
     c = wy.shape[-1]
-    smem = 4 * n_buckets * c
-    if wy.shape[:2] != (t, n) or n_buckets < 1 or c < 1 or smem > MAX_SMEM or t > MAX_TREES:
+    slice_ = max(1, min(n_buckets, MAX_SMEM // (4 * max(c, 1))))
+    if (wy.shape[:2] != (t, n) or n_buckets < 1 or not 1 <= 4 * c <= MAX_SMEM
+            or t > MAX_GRID_YZ or -(-n_buckets // slice_) > MAX_GRID_YZ):
         raise ValueError(
             f"histogram kernel: codes {tuple(codes.shape)}, wy {tuple(wy.shape)}, "
-            f"n_buckets {n_buckets} need matching (T, N), T <= {MAX_TREES} and "
-            f"{smem} <= {MAX_SMEM} bytes of shared memory"
+            f"n_buckets {n_buckets} need matching (T, N), T <= {MAX_GRID_YZ}, "
+            f"4 * C <= {MAX_SMEM} and at most {MAX_GRID_YZ} bucket slices"
         )
     if t == 0 or f == 0 or n == 0:
         return torch.zeros((t, f, n_buckets, c), dtype=torch.float32, device=codes.device)

@@ -15,11 +15,14 @@ def wpd_level(
     if n % 2:
         raise ValueError(f"row length {n} must be even")
     x = x.to(torch.float32)
-    base = 2 * torch.arange(n // 2, device=x.device)
+    taps = h.shape[0]
+    # One periodized copy; tap k reads the stride-2 view starting at k.
+    xp = x[..., torch.arange(n + taps - 2, device=x.device) % n]
     a = torch.zeros(x.shape[:-1] + (n // 2,), dtype=torch.float32, device=x.device)
     d = torch.zeros_like(a)
+    term = torch.empty_like(a)
     for k, (hk, gk) in enumerate(zip(h.tolist(), g.tolist())):
-        v = x[..., (base + k) % n]
-        a = a + hk * v
-        d = d + gk * v
+        v = xp[..., k : k + n - 1 : 2]
+        a += torch.mul(v, hk, out=term)
+        d += torch.mul(v, gk, out=term)
     return a, d

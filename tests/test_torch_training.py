@@ -31,12 +31,13 @@ Tolerances:
     denoise/feature differences, the bound of tests/test_torch_engine.py).
 
 Size cuts, each to keep the file's CPU time small: forests of 2-6 trees
-of depth 2-5 with 4-16 bins; the grower on 200 rows of 12 features and
+of depth 2-4 with 4-8 bins; the grower on 200 rows of 12 features and
 the MapReduce fits on 240 rows of 288 (numpy blobs, the EEG slice's
 shape, so the reference compiles its sharded fit once); for the EEG
 slice 4 training chunks (2 per shard) and a held-out timeline of 0
 interictal hours plus the 48-minute run-up (6 chunks, 8 trailing
-windows) at full window width.
+windows) at full window width, served by one-slot engines at replay
+depth 1 (a single session never fills a second slot).
 """
 
 from __future__ import annotations
@@ -149,8 +150,13 @@ def grown():
     x, y = _blobs(0, 200)
     jcfg = jrf.RotationForestConfig(**GROW_CFG)
     keys = jax.random.split(jax.random.PRNGKey(3), jcfg.n_trees)
-    prep = jax.jit(jax.vmap(lambda k: jrf._prepare_one(k, jnp.asarray(x), jnp.asarray(y), jcfg)))
-    rots, xbs, ws, edges = prep(keys)
+    # One tree per call: the unbatched prep compiles in a third of the
+    # vmapped one's time.
+    prep = jax.jit(jrf._prepare_one, static_argnames="cfg")
+    rots, xbs, ws, edges = (
+        jnp.stack(v)
+        for v in zip(*(prep(k, jnp.asarray(x), jnp.asarray(y), cfg=jcfg) for k in keys))
+    )
     jtrees = jdt.fit_forest_binned(
         xbs, jnp.asarray(y), ws, depth=jcfg.depth, n_classes=2, n_bins=jcfg.n_bins,
         bin_edges=edges,
@@ -262,7 +268,7 @@ def test_pack_and_predict_match_jax(grown):
 # MapReduce training
 # ---------------------------------------------------------------------------
 
-SLICE_FOREST = dict(n_trees=6, n_subsets=3, depth=5, n_classes=2, n_bins=16)
+SLICE_FOREST = dict(n_trees=6, n_subsets=3, depth=3, n_classes=2, n_bins=8)
 # The EEG slice's training shape: 4 chunks of 60 windows, F = 288. The
 # blob fits below use it too, so the reference compiles its sharded fit
 # once for the file.
@@ -511,7 +517,7 @@ def port_slice(slice_data, tmp_path_factory):
 def test_port_fit_serves_its_own_oracle(port_slice):
     cfg, fitted, program, res, _, timeline = port_slice
     assert fitted.forest.rotation.shape == (6, 288, 288)
-    engine = api.SeizureEngine(program, max_batch=2, replay_depth=2, device="cpu")
+    engine = api.SeizureEngine(program, max_batch=1, replay_depth=1, device="cpu")
     scored = _serve(engine, 3, timeline.windows.numpy())
     assert [e.alarm for e in scored] == res.alarms.tolist()
     assert [e.chunk_pred for e in scored] == res.chunk_preds.tolist()
@@ -532,7 +538,7 @@ def test_swap_program_stamps_versions_and_matches_composite_oracle(port_slice):
     wins = timeline.windows.numpy()
     n_chunks = wins.shape[0] // PER
     k_swap = n_chunks // 2
-    engine = api.SeizureEngine(program, max_batch=1, replay_depth=2, device="cpu")
+    engine = api.SeizureEngine(program, max_batch=1, replay_depth=1, device="cpu")
     scored = _serve(engine, 7, wins, 0, k_swap * PER)
     version = engine.swap_program(api.ScoringProgram.from_fitted(fitted2, cfg))
     assert version == engine.program_version == 1
