@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of the seizure-scoring and training paths on one
-CUDA card.
+"""Drive the PyTorch port of the seizure-scoring, training and LM serving
+paths on one CUDA card.
 
 Run from the root of a checkout, with no arguments:
 
@@ -46,7 +46,25 @@ Phases (any failure exits non-zero):
      0.05. A retrain on fresh shards is swapped into the running engine
      mid-stream; version stamps and the composite old/new alarm oracle
      must be exact.
-  7. A ``kernels`` JSON line, the card line, and the last line
+  7. LM serving at the full width of qwen3-0.6b (28 layers, 751.6 M
+     parameters drawn from a seeded generator, bf16 compute). K5
+     flash_attention against its plain version at the static prefill's
+     shape (128, 2048, 128) causal in bf16 and f32, at a batch-1
+     admission's, a ragged S, a non-causal and an hd-64 case, each with
+     its error, time, plain and SDPA times and bound. A static batch
+     (``ServeEngine``, 8 slots, max_seq 4096, prompts of ragged length up
+     to 2048, 32 new tokens each): K5 must launch exactly 28 times (once
+     per layer of the one prefill); prefill ms, decode ms per step and
+     tokens/s. Continuous batching (``ContinuousEngine``): 12 requests over
+     4 slots with ragged max_new, prompts of 512 and 1024 tokens (batch-1
+     prefills through K5) and of other lengths (plain ``_sdpa``); every
+     request completes, admissions happen mid-stream, K5 launches 28 times
+     per 512-multiple prompt. Both runs again with K5's plain version:
+     the logits of every step whose context is the same on both paths
+     (the prefills among them) within LM_LOGIT_TOL, tokens equal up to
+     each request's first step whose plain-path top-2 margin is below
+     LM_MARGIN. Profiler traces of one prefill and one decode step.
+  8. A ``kernels`` JSON line (K1-K5), the card line, and the last line
      ``{"ok": true, "device": {...}}``.
 """
 
@@ -71,6 +89,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # float32 on the CUDA cores).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12  # dense, tensor cores
 
 SEED = 0
 N_SESSIONS = 8
@@ -82,6 +101,26 @@ TRAIN_PATIENT = 3
 TRAIN_CHUNKS_PER_CLASS = 16
 TRAIN_SHARDS = 2
 PUSH = 37  # windows per push when serving the held-out timeline
+# Phase 7: LM serving at the full width of qwen3-0.6b (random weights).
+LM_ARCH = "qwen3-0.6b"
+LM_SLOTS = 8
+LM_MAX_SEQ = 4096
+LM_MAX_NEW = 32
+LM_STATIC_LENS = (2048, 1999, 1536, 1234, 1024, 777, 512, 301)  # padded width 2048
+LM_CONT_SLOTS = 4
+LM_CONT_MAX_SEQ = 2048
+LM_CONT_LENS = (512, 1024, 700, 1500, 512, 333, 1024, 900, 512, 1100, 1024, 257)
+LM_CONT_MAX_NEW = (8, 20, 12, 5, 16, 9, 24, 6, 11, 14, 7, 10)
+# Kernel path against plain path, bf16 throughout: the two round P (and
+# so each attention output) at different places, about one bf16 ulp
+# apart, and 28 layers carry that into the logits, which are themselves
+# bf16 products: at this random init the largest |logit| lies in [4, 8),
+# where a bf16 ulp is 2^-5, and LM_LOGIT_TOL is 8 such ulps. A token can
+# flip only where the plain path's top two logits lie closer than their two
+# differences; those are a few ulps each, so tokens are compared up to the
+# first step whose plain-path margin is below 4 ulps.
+LM_LOGIT_TOL = 0.25   # max |logit difference| on the same context
+LM_MARGIN = 0.125
 
 
 def fail(msg: str) -> None:
@@ -111,9 +150,10 @@ def time_ms(fn, launches: int = 20, reps: int = 7, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S
+             ) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -121,28 +161,31 @@ def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
 def plain_versions():
     """Route CUDA tensors to the plain versions for the duration (the
     wrappers' kernel entries are swapped for the ref functions)."""
+    from repro_torch.kernels.flash_attention import kernel as ak, ref as ar
     from repro_torch.kernels.forest import kernel as fk, ref as fr
     from repro_torch.kernels.gram import kernel as gk, ref as gr
     from repro_torch.kernels.histogram import kernel as hk, ref as hr
     from repro_torch.kernels.wpd import kernel as wk, ref as wr
 
-    saved = (fk.forest_traverse, gk.gram, wk.wpd_level, hk.class_histogram)
-    fk.forest_traverse, gk.gram, wk.wpd_level, hk.class_histogram = (
-        fr.forest_traverse, gr.gram, wr.wpd_level, hr.class_histogram
+    saved = (fk.forest_traverse, gk.gram, wk.wpd_level, hk.class_histogram, ak.flash_attention)
+    fk.forest_traverse, gk.gram, wk.wpd_level, hk.class_histogram, ak.flash_attention = (
+        fr.forest_traverse, gr.gram, wr.wpd_level, hr.class_histogram, ar.attention
     )
     try:
         yield
     finally:
-        fk.forest_traverse, gk.gram, wk.wpd_level, hk.class_histogram = saved
+        (fk.forest_traverse, gk.gram, wk.wpd_level, hk.class_histogram,
+         ak.flash_attention) = saved
 
 
 def _kernel_modules() -> dict:
+    from repro_torch.kernels.flash_attention import kernel as ak
     from repro_torch.kernels.forest import kernel as fk
     from repro_torch.kernels.gram import kernel as gk
     from repro_torch.kernels.histogram import kernel as hk
     from repro_torch.kernels.wpd import kernel as wk
 
-    return {"forest": fk, "wpd_level": wk, "gram": gk, "histogram": hk}
+    return {"forest": fk, "wpd_level": wk, "gram": gk, "histogram": hk, "flash_attention": ak}
 
 
 def launch_counts() -> dict[str, int]:
@@ -845,6 +888,336 @@ def training_phase(gen, committed) -> tuple[dict, dict]:
     return rows, counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: LM serving (dense qwen3-0.6b, K5)
+# ---------------------------------------------------------------------------
+
+def flash_row(gen, bh: int, s: int, hd: int, dtype, causal: bool) -> dict:
+    """K5 against its plain version on random q, k, v (bh, s, hd). The
+    tolerance, on max|v|: bf16 2^-6 (the two round P at different places,
+    <= 2 x 2^-9 of max|v|, and the output once each, <= 2^-7 of max|o|);
+    f32 2e-5 (the same f32 softmax, other orders of summation and exp).
+    Timed beside F.scaled_dot_product_attention (a yardstick the port
+    never calls) and its bound: causal work counts the S(S+1)/2 pairs a
+    causal mask keeps, 4 hd flops each, at the type's peak rate."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as ak, ref as ar
+
+    q, k, v = (torch.randn((bh, s, hd), generator=gen, device=gen.device).to(dtype)
+               for _ in range(3))
+    got, want = ak.flash_attention(q, k, v, causal=causal), ar.attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = (2.0**-6 if dtype == torch.bfloat16 else 2e-5) * float(v.float().abs().max())
+    name = f"flash_attention/{s}x{hd} {str(dtype).split('.')[-1]} {'causal' if causal else 'full'}"
+    if not err <= tol:
+        fail(f"{name} kernel disagrees with its plain version: {err} > {tol}")
+    pairs = s * (s + 1) / 2 if causal else float(s * s)
+    rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    b_ms, b_by = bound_ms(4 * q.numel() * q.element_size(), 4.0 * hd * bh * pairs, rate)
+    reps = dict(launches=5, reps=5) if dtype == torch.float32 else {}
+    return dict(
+        shape=f"q, k, v ({bh}, {s}, {hd})", max_abs_err=err, tol=tol,
+        ms=time_ms(lambda: ak.flash_attention(q, k, v, causal=causal), **reps),
+        plain_ms=time_ms(lambda: ar.attention(q, k, v, causal=causal), **reps),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=causal), **reps),
+        bound_ms=b_ms, bound_by=b_by, name=name,
+    )
+
+
+def check_flash(gen) -> dict[str, dict]:
+    import torch
+
+    rows = {}
+    for args in ((128, 2048, 128, torch.bfloat16, True),   # the static prefill's shape
+                 (128, 2048, 128, torch.float32, True),
+                 (16, 1024, 128, torch.bfloat16, True),    # a batch-1 admission prefill
+                 (16, 1000, 128, torch.bfloat16, True),    # ragged S, masked in the kernel
+                 (64, 1024, 128, torch.bfloat16, False),
+                 (64, 1024, 64, torch.bfloat16, True)):
+        r = flash_row(gen, *args)
+        rows[r.pop("name")] = r
+    print_kernel_rows(rows)
+    return rows
+
+
+@contextlib.contextmanager
+def lm_recorder(model):
+    """Record, for every prefill and decode step the engines run, the
+    synchronized host time, the last-position logits and each row's
+    argmax and top-2 margin (the model's methods are wrapped on the
+    instance for the duration)."""
+    import torch
+
+    calls = {"prefill": [], "decode": []}
+
+    def wrap(kind, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            last = logits[:, -1].float()
+            top = last.topk(2, dim=-1).values
+            calls[kind].append(dict(seconds=seconds, logits=last,
+                                    tokens=last.argmax(-1).tolist(),
+                                    margins=(top[:, 0] - top[:, 1]).tolist()))
+            return logits, cache
+        return run
+
+    model.prefill = wrap("prefill", model.prefill)
+    model.decode_step = wrap("decode", model.decode_step)
+    try:
+        yield calls
+    finally:
+        del model.prefill, model.decode_step
+
+
+def lm_static(model, prompts):
+    """ServeEngine over one static batch: the generated tokens, the
+    recorded calls and the wall time of generate()."""
+    import torch
+
+    from repro_torch.serving.engine import ServeEngine
+
+    engine = ServeEngine(model, max_batch=LM_SLOTS, max_seq=LM_MAX_SEQ, eos_id=-1,
+                         device="cuda")
+    with lm_recorder(model) as calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = engine.generate(prompts, max_new=LM_MAX_NEW)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return [o.tolist() for o in outs], calls, seconds
+
+
+def continuous_schedule(max_new, slots):
+    """With EOS never firing, the continuous engine's schedule depends on
+    max_new alone: (per decode step, the request in each slot; the
+    admissions as (decode step or -1 before the first, slot, request))."""
+    queue = list(range(len(max_new)))
+    occupant, count, admissions, steps = [None] * slots, {}, [], []
+    for i in range(slots):
+        if queue:
+            r = queue.pop(0)
+            occupant[i], count[r] = r, 1
+            admissions.append((-1, i, r))
+    while any(o is not None for o in occupant):
+        steps.append(list(occupant))
+        for i, r in enumerate(steps[-1]):
+            if r is None:
+                continue
+            if count[r] >= max_new[r]:
+                occupant[i] = None
+                if queue:
+                    r2 = queue.pop(0)
+                    occupant[i], count[r2] = r2, 1
+                    admissions.append((len(steps) - 1, i, r2))
+            else:
+                count[r] += 1
+    return steps, admissions
+
+
+def static_steps(calls, n):
+    """Each static request's steps as (token, top-2 margin, logits row):
+    token t of request i is row i of call t (the prefill, then the decode
+    steps; the last decode step's tokens are not kept)."""
+    seq = calls["prefill"] + calls["decode"]
+    return [[(c["tokens"][i], c["margins"][i], c["logits"][i]) for c in seq[:LM_MAX_NEW]]
+            for i in range(n)]
+
+
+def continuous_steps(calls, steps, admissions, n):
+    """Each continuous request's steps as (token, top-2 margin, logits
+    row), read along the schedule: its admission prefill, then each decode
+    step that extended it."""
+    out = [[] for _ in range(n)]
+    for (_, _, r), call in zip(admissions, calls["prefill"]):
+        out[r].append((call["tokens"][0], call["margins"][0], call["logits"][0]))
+    for occupants, call in zip(steps, calls["decode"]):
+        for i, r in enumerate(occupants):
+            if r is not None and len(out[r]) < LM_CONT_MAX_NEW[r]:
+                out[r].append((call["tokens"][i], call["margins"][i], call["logits"][i]))
+    return out
+
+
+def lm_continuous(model, prompts):
+    import torch
+
+    from repro_torch.serving.continuous import ContinuousEngine, Request
+
+    engine = ContinuousEngine(model, max_batch=LM_CONT_SLOTS, max_seq=LM_CONT_MAX_SEQ,
+                              eos_id=-1, device="cuda")
+    requests = [Request(p, m) for p, m in zip(prompts, LM_CONT_MAX_NEW)]
+    with lm_recorder(model) as calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.serve(requests)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return requests, calls, seconds
+
+
+def compare_paths(label, kernel, plain) -> tuple[float, int, int, int]:
+    """kernel, plain: per request, per step (token, top-2 margin, logits
+    row). (1) At every step whose context is the same on both paths (the
+    request's earlier tokens equal), the logits agree within LM_LOGIT_TOL.
+    (2) Tokens are equal up to each request's first step whose plain-path
+    margin is below LM_MARGIN. Returns (max logit difference, steps whose
+    logits were compared, steps whose tokens were compared, steps)."""
+    diff, n_logits, n_tokens, total = 0.0, 0, 0, 0
+    for r, (ks, ps) in enumerate(zip(kernel, plain)):
+        total += len(ps)
+        for t, ((kt, _, kl), (pt, _, pl)) in enumerate(zip(ks, ps)):
+            d = float((kl - pl).abs().max())
+            diff, n_logits = max(diff, d), n_logits + 1
+            if not d <= LM_LOGIT_TOL:
+                fail(f"{label}: request {r} step {t}: logits of the kernel and plain paths "
+                     f"differ by {d} > {LM_LOGIT_TOL} on the same context")
+            if kt != pt:
+                break  # the contexts differ from the next step on
+        stop = next((t for t, step in enumerate(ps) if step[1] < LM_MARGIN), len(ps))
+        got, want = [step[0] for step in ks[:stop]], [step[0] for step in ps[:stop]]
+        if got != want:
+            fail(f"{label}: request {r} tokens differ before its first step with plain "
+                 f"margin < {LM_MARGIN} (step {stop}): {got} vs {want}")
+        n_tokens += stop
+    return diff, n_logits, n_tokens, total
+
+
+def lm_traces(model, tokens) -> None:
+    """Device busy and idle share, and device time by kernel, of one
+    static prefill and of one decode step at 8 slots."""
+    import torch
+
+    _, cache = model.prefill({"tokens": tokens}, LM_MAX_SEQ)
+    step = {"tokens": torch.zeros((tokens.shape[0], 1), dtype=torch.int32, device="cuda")}
+    for what, fn, name in (
+        (f"one prefill {tuple(tokens.shape)}",
+         lambda: model.prefill({"tokens": tokens}, LM_MAX_SEQ), "lm_prefill_trace"),
+        (f"one decode step ({tokens.shape[0]} slots, cache {LM_MAX_SEQ})",
+         lambda: model.decode_step(cache, step), "lm_decode_trace"),
+    ):
+        wall_ms, busy_ms, by_name = device_activity(fn, name)
+        if busy_ms is None:
+            print(f"lm trace {what}: {wall_ms:.3f} ms wall; the profiler recorded no "
+                  "device activity: busy and idle share not measured")
+            continue
+        print(f"lm trace {what}: {wall_ms:.3f} ms wall (profiler on), device busy "
+              f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}, "
+              f"{sum(n for _, n in by_name.values())} device activities")
+        for kname, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+            print(f"lm trace kernel: {ms:.3f} ms in {n} launches: {kname[:110]}")
+
+
+def lm_phase(gen) -> tuple[dict, int]:
+    """Phase 7. Returns the K5 rows and K5's launches in the two engine
+    runs through the kernels."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    rows = check_flash(gen)
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = build(cfg).init(torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    model.compute_params()
+    torch.cuda.synchronize()
+    print(f"lm model: {cfg.name}, {model.param_count() / 1e6:.1f} M parameters "
+          f"(float32 master + bf16 compute copy), {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, vocab {cfg.vocab_size}; "
+          f"drawn in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    static_prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+                      for n in LM_STATIC_LENS]
+    cont_prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+                    for n in LM_CONT_LENS]
+
+    # Static batch through the kernels (after one warm-up generate).
+    lm_static(model, static_prompts[:2])
+    reset_counts()
+    toks, calls, seconds = lm_static(model, static_prompts)
+    k5_static = launch_counts()["flash_attention"]
+    pre_s = calls["prefill"][0]["seconds"]
+    dec = [c["seconds"] for c in calls["decode"]]
+    n_tok = sum(len(t) for t in toks)
+    print(f"lm static: {LM_SLOTS} slots, prompts {LM_STATIC_LENS} (padded width "
+          f"{max(LM_STATIC_LENS)}), max_seq {LM_MAX_SEQ}, {LM_MAX_NEW} new tokens each: "
+          f"prefill {pre_s * 1e3:.3f} ms, decode {statistics.median(dec) * 1e3:.3f} ms per step "
+          f"(median of {len(dec)}), {n_tok} tokens in {seconds:.3f} s = {n_tok / seconds:.1f} "
+          f"generated tokens/s ({LM_SLOTS / statistics.median(dec):.1f} tokens/s in decode); "
+          f"K5 launches {k5_static}; largest |logit| of the prefill "
+          f"{float(calls['prefill'][0]['logits'].abs().max()):.3f}")
+    if k5_static != cfg.n_layers:
+        fail(f"K5 launched {k5_static} times in the static run, expected {cfg.n_layers}")
+    for row in calls["prefill"][0]["logits"], *(c["logits"] for c in calls["decode"]):
+        if not bool(torch.isfinite(row).all()):
+            fail("non-finite logits in the static run")
+    reset_counts()
+    with plain_versions():
+        p_toks, p_calls, p_seconds = lm_static(model, static_prompts)
+    if any(launch_counts().values()):
+        fail("a kernel launched during the plain LM run")
+    n = len(static_prompts)
+    kernel, plain = static_steps(calls, n), static_steps(p_calls, n)
+    if ([[st[0] for st in r] for r in kernel] != toks
+            or [[st[0] for st in r] for r in plain] != p_toks):
+        fail("static run: the recorded calls do not replay the generated tokens")
+    diff, n_logits, n_tokens, total = compare_paths("lm static", kernel, plain)
+    print(f"lm static plain path: prefill {p_calls['prefill'][0]['seconds'] * 1e3:.3f} ms, "
+          f"{n_tok / p_seconds:.1f} generated tokens/s; logits on the same context differ by "
+          f"at most {diff:.4e} (tol {LM_LOGIT_TOL}) over {n_logits} of {total} steps; tokens "
+          f"equal on {n_tokens} of {total} steps (each request up to its first plain margin "
+          f"< {LM_MARGIN})")
+    del kernel, plain, calls, p_calls
+
+    # Continuous batching: 12 requests over 4 slots.
+    steps, admissions = continuous_schedule(LM_CONT_MAX_NEW, LM_CONT_SLOTS)
+    reset_counts()
+    reqs, calls, seconds = lm_continuous(model, cont_prompts)
+    k5_cont = launch_counts()["flash_attention"]
+    want_k5 = cfg.n_layers * sum(n % 512 == 0 for n in LM_CONT_LENS)
+    mid = sum(step >= 0 for step, _, _ in admissions)
+    if not all(r.done and len(r.out) == m for r, m in zip(reqs, LM_CONT_MAX_NEW)):
+        fail(f"continuous run: not every request completed: {[len(r.out) for r in reqs]}")
+    if k5_cont != want_k5 or len(calls["decode"]) != len(steps) or mid == 0:
+        fail(f"continuous run: K5 {k5_cont} launches (expected {want_k5}), "
+             f"{len(calls['decode'])} decode steps (schedule {len(steps)}), {mid} mid-stream "
+             "admissions")
+    kernel = continuous_steps(calls, steps, admissions, len(reqs))
+    if [[st[0] for st in r] for r in kernel] != [r.out for r in reqs]:
+        fail("continuous run: the recorded calls do not replay the requests' tokens")
+    n_tok = sum(len(r.out) for r in reqs)
+    print(f"lm continuous: {len(reqs)} requests over {LM_CONT_SLOTS} slots, prompts "
+          f"{LM_CONT_LENS}, max_new {LM_CONT_MAX_NEW}: all complete; {len(steps)} decode "
+          f"steps, {mid} admissions mid-stream; {n_tok} tokens in {seconds:.3f} s = "
+          f"{n_tok / seconds:.1f} tokens/s; decode "
+          f"{statistics.median(c['seconds'] for c in calls['decode']) * 1e3:.3f} ms per step "
+          f"(median); K5 launches {k5_cont}")
+    reset_counts()
+    with plain_versions():
+        p_reqs, p_calls, p_seconds = lm_continuous(model, cont_prompts)
+    if any(launch_counts().values()):
+        fail("a kernel launched during the plain continuous run")
+    plain = continuous_steps(p_calls, steps, admissions, len(p_reqs))
+    if [[st[0] for st in r] for r in plain] != [r.out for r in p_reqs]:
+        fail("plain continuous run: the recorded calls do not replay the requests' tokens")
+    diff, n_logits, n_tokens, total = compare_paths("lm continuous", kernel, plain)
+    print(f"lm continuous plain path: {n_tok / p_seconds:.1f} tokens/s; logits on the same "
+          f"context differ by at most {diff:.4e} (tol {LM_LOGIT_TOL}) over {n_logits} of "
+          f"{total} steps; tokens equal on {n_tokens} of {total} steps (each request up to "
+          f"its first plain margin < {LM_MARGIN})")
+    del kernel, plain, calls, p_calls
+    lm_traces(model, torch.from_numpy(np.stack([
+        np.pad(p, (max(LM_STATIC_LENS) - len(p), 0)) for p in static_prompts])).to("cuda"))
+    return rows, k5_static + k5_cont
+
+
 def print_kernel_rows(rows: dict) -> None:
     for name, r in rows.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -932,16 +1305,22 @@ def main() -> int:
     rows.update(hist_rows)
     launches = {k: launches.get(k, 0) + fit_counts[k] for k in fit_counts}
 
+    # Phase 7.
+    flash_rows, launches["flash_attention"] = lm_phase(gen)
+    rows.update(flash_rows)
+
     sources = {"forest": "forest.cu", "wpd_level": "wpd_level.cu", "gram": "gram.cu",
-               "histogram": "histogram.cu"}
+               "histogram": "histogram.cu", "flash_attention": "flash_attention.cu"}
     replaces = {
         "forest": "src/repro/kernels/forest/kernel.py:73",
         "wpd_level": "src/repro/kernels/wpd/kernel.py:86",
         "gram": "src/repro/kernels/gram/kernel.py:66",
         "histogram": "src/repro/kernels/histogram/kernel.py:77",
+        "flash_attention": "src/repro/kernels/flash_attention/kernel.py:103",
     }
     main_rows = {"forest": "forest", "wpd_level": "wpd_level/2048", "gram": "gram/1024x180",
-                 "histogram": f"histogram/{max(int(k.split('/')[1]) for k in hist_rows)}"}
+                 "histogram": f"histogram/{max(int(k.split('/')[1]) for k in hist_rows)}",
+                 "flash_attention": next(iter(flash_rows))}
     line = {"kernels": [
         {
             "name": k, "route": "cuda",

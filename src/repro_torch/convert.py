@@ -12,6 +12,11 @@ its fields: ``rotation``, the four ``TreeParams`` fields, and for a
 pipeline ``feat_mean`` / ``feat_std``. ``*_from_jax`` read the
 reference's named tuples structurally (``numpy.asarray`` of each field),
 and ``*_to_arrays`` give the dict the reference's tuples are built from.
+An LM parameter tree (the reference's nested dict from ``Model.init``)
+crosses as a state dict keyed by its paths joined with ``.``
+(``lm_params_from_jax``), which ``repro_torch.models.Model.load_params``
+takes.
+
 Every direction is numpy-only, so neither package imports the other.
 """
 
@@ -23,6 +28,7 @@ import torch
 from repro_torch.core import decision_tree as dt
 from repro_torch.core import rotation_forest as rf
 from repro_torch.device import resolve_device
+from repro_torch.models import params as lm_params
 from repro_torch.serving.api import ScoringProgram
 from repro_torch.signal.pipeline import FittedPipeline
 
@@ -101,3 +107,13 @@ def fitted_from_jax(fitted, device: torch.device | str | None = None) -> FittedP
     arrays = _jax_forest_arrays(fitted.forest)
     arrays.update(feat_mean=np.asarray(fitted.feat_mean), feat_std=np.asarray(fitted.feat_std))
     return fitted_from_arrays(arrays, device)
+
+
+def lm_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """The reference's LM parameter tree (nested dicts of arrays, read
+    with ``numpy.asarray``) as the port's state dict: float32 CPU tensors
+    keyed by the dotted path."""
+    return {
+        ".".join(path): torch.from_numpy(np.array(leaf, dtype=np.float32))
+        for path, leaf in lm_params.flatten(tree)
+    }
