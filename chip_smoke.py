@@ -50,8 +50,9 @@ Phases (any failure exits non-zero):
      parameters drawn from a seeded generator, bf16 compute). K5
      flash_attention against its plain version at the static prefill's
      shape (128, 2048, 128) causal in bf16 and f32, at a batch-1
-     admission's, a ragged S, a non-causal and an hd-64 case, each with
-     its error, time, plain and SDPA times and bound. A static batch
+     admission's, a ragged S, a non-causal and an hd-64 case, each held
+     element by element within FLASH_TOL of its query row's scale and
+     printed with its error, time, plain and SDPA times and bound. A static batch
      (``ServeEngine``, 8 slots, max_seq 4096, prompts of ragged length up
      to 2048, 32 new tokens each): K5 must launch exactly 28 times (once
      per layer of the one prefill); prefill ms, decode ms per step and
@@ -121,6 +122,16 @@ LM_CONT_MAX_NEW = (8, 20, 12, 5, 16, 9, 24, 6, 11, 14, 7, 10)
 # first step whose plain-path margin is below 4 ulps.
 LM_LOGIT_TOL = 0.25   # max |logit difference| on the same context
 LM_MARGIN = 0.125
+# K5 against its plain version, element by element: |kernel - plain| <=
+# REL |plain| + ROW max|plain row|, so each query row is held at its own
+# scale (a row that averages i keys has outputs ~1/sqrt(i) of |v|). bf16:
+# both round the output once (2^-7 covers one ulp between them); the plain
+# version also rounds q.k to bf16 (about 2^-9 of |q.k|, ~0.01 of a unit
+# logit) where the kernel keeps it f32, and the two round P at different
+# places: together under 2^-6 of a row's largest output on random inputs.
+# f32: one softmax in two orders of summation. tools/flash_faults.py plants
+# faults in the kernel and reads how far over this limit each one lands.
+FLASH_TOL = {"bfloat16": (2.0**-7, 2.0**-5), "float32": (2.0**-17, 2.0**-17)}
 
 
 def fail(msg: str) -> None:
@@ -892,14 +903,22 @@ def training_phase(gen, committed) -> tuple[dict, dict]:
 # Phase 7: LM serving (dense qwen3-0.6b, K5)
 # ---------------------------------------------------------------------------
 
+def flash_share(got, want) -> float:
+    """The largest share of its FLASH_TOL tolerance that any element of
+    K5's output ``got`` uses against the plain version's ``want`` (over 1:
+    they disagree)."""
+    rel, row = FLASH_TOL[str(want.dtype).split(".")[-1]]
+    got, want = got.float(), want.float()
+    tol = rel * want.abs() + row * want.abs().amax(-1, keepdim=True)
+    return float(((got - want).abs() / tol).max())
+
+
 def flash_row(gen, bh: int, s: int, hd: int, dtype, causal: bool) -> dict:
-    """K5 against its plain version on random q, k, v (bh, s, hd). The
-    tolerance, on max|v|: bf16 2^-6 (the two round P at different places,
-    <= 2 x 2^-9 of max|v|, and the output once each, <= 2^-7 of max|o|);
-    f32 2e-5 (the same f32 softmax, other orders of summation and exp).
-    Timed beside F.scaled_dot_product_attention (a yardstick the port
-    never calls) and its bound: causal work counts the S(S+1)/2 pairs a
-    causal mask keeps, 4 hd flops each, at the type's peak rate."""
+    """K5 against its plain version on random q, k, v (bh, s, hd), element
+    by element within FLASH_TOL. Timed beside
+    F.scaled_dot_product_attention (a yardstick the port never calls) and
+    its bound: causal work counts the S(S+1)/2 pairs a causal mask keeps,
+    4 hd flops each, at the type's peak rate."""
     import torch
     import torch.nn.functional as F
 
@@ -910,16 +929,20 @@ def flash_row(gen, bh: int, s: int, hd: int, dtype, causal: bool) -> dict:
     got, want = ak.flash_attention(q, k, v, causal=causal), ar.attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
-    tol = (2.0**-6 if dtype == torch.bfloat16 else 2e-5) * float(v.float().abs().max())
+    share = flash_share(got, want)
+    rel, row = FLASH_TOL[str(dtype).split(".")[-1]]
     name = f"flash_attention/{s}x{hd} {str(dtype).split('.')[-1]} {'causal' if causal else 'full'}"
-    if not err <= tol:
-        fail(f"{name} kernel disagrees with its plain version: {err} > {tol}")
+    if not share <= 1.0:
+        fail(f"{name} kernel disagrees with its plain version: an element uses {share} "
+             f"of its tolerance {rel:.3g} |plain| + {row:.3g} max|plain row|")
     pairs = s * (s + 1) / 2 if causal else float(s * s)
     rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
     b_ms, b_by = bound_ms(4 * q.numel() * q.element_size(), 4.0 * hd * bh * pairs, rate)
     reps = dict(launches=5, reps=5) if dtype == torch.float32 else {}
     return dict(
-        shape=f"q, k, v ({bh}, {s}, {hd})", max_abs_err=err, tol=tol,
+        shape=f"q, k, v ({bh}, {s}, {hd})", max_abs_err=err, tol=None,
+        note=f"tol per element {rel:.3g} |plain| + {row:.3g} max|plain row|, the worst "
+             f"element uses {share:.4f} of it",
         ms=time_ms(lambda: ak.flash_attention(q, k, v, causal=causal), **reps),
         plain_ms=time_ms(lambda: ar.attention(q, k, v, causal=causal), **reps),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
@@ -1221,8 +1244,9 @@ def lm_phase(gen) -> tuple[dict, int]:
 def print_kernel_rows(rows: dict) -> None:
     for name, r in rows.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        tol = [] if r["tol"] is None else [f"tol {r['tol']:.3e}"]
         print(f"kernel {name}: {r['shape']}: max_abs_err {r['max_abs_err']:.3e} "
-              f"(tol {r['tol']:.3e}{'; ' + r['note'] if 'note' in r else ''}); "
+              f"({'; '.join(tol + ([r['note']] if 'note' in r else []))}); "
               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib}, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 

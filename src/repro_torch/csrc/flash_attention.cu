@@ -31,10 +31,13 @@
 //   fragments of Q K^T are rounded to bf16 in registers and reused as the A
 //   operand of P V, so P never touches shared memory. Tiles are bf16 rows
 //   padded by 16 bytes, so a warp's fragment loads hit 32 distinct banks.
-//   f32: 256 threads, each with a 4 x 4 tile of the scores and the matching
-//   4 rows x hd/16 columns of the accumulator, f32 FMAs on the CUDA cores
-//   (tiles staged as f32, rows padded by one word), P through shared memory;
-//   bounded by the 67 TFLOP/s f32 rate (2.05 ms at the shape above).
+//   f32 (the reference kernel takes f32 too, and the reduced configs compute
+//   in f32; on the card only chip_smoke.py's f32 check sends it today): 256
+//   threads, each with a 4 x 4 tile of the scores and the matching 4 rows x
+//   hd/16 columns of the accumulator, f32 FMAs on the CUDA cores (tiles
+//   staged as f32, rows padded by one word), P through shared memory; the
+//   same tile schedule as bf16 in a second body, bounded by the 67 TFLOP/s
+//   f32 rate (2.05 ms at the shape above).
 // No TMA, no wgmma, no overlap of loads with products yet: the next PRs' work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

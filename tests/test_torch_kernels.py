@@ -292,7 +292,8 @@ def test_kernel_library_is_keyed_by_the_sources():
 # ---------------------------------------------------------------------------
 
 def _port_files():
-    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "tools").glob("*.py")))
 
 
 def test_no_repro_imports_in_port_sources():

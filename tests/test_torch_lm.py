@@ -26,6 +26,10 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import importlib
+import importlib.util
+import pathlib
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -52,6 +56,9 @@ from repro_torch.serving.continuous import ContinuousEngine, Request, _splice
 from repro_torch.serving.engine import ServeEngine
 
 flash_attention_ops = flash_ops.flash_attention
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.append(str(ROOT))  # chip_smoke.py
 
 # One intra-op thread: the suite runs in parallel workers on a shared
 # machine (see test_torch_kernels.py).
@@ -144,6 +151,54 @@ def test_flash_kernel_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         flash_kernel.flash_attention(x, x, x)
     assert flash_kernel.LAUNCHES == before
+
+
+def _attention_f32(q, k, v, drop):
+    """Causal attention on the bf16 inputs in float32 throughout (no
+    rounding of q.k or P, as the kernel keeps them), with the (row, key)
+    pairs where ``drop`` is true masked out too; rounded to bf16 once."""
+    s, hd = q.shape[1:]
+    logits = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / hd**0.5
+    i, j = torch.arange(s)[:, None], torch.arange(s)[None, :]
+    logits = torch.where((j <= i) & ~drop(i, j), logits, flash_ref.NEG_INF)
+    return torch.einsum("bqk,bkd->bqd", torch.softmax(logits, -1), v.float()).to(q.dtype)
+
+
+@pytest.mark.parametrize("variant, caught", [
+    ("f32 logits and P", False),
+    ("keys 512-575 skipped by rows >= 1024", True),
+    ("key 0 dropped by rows >= 1024", True),
+])
+def test_flash_tolerance_separates_rounding_from_faults(variant, caught):
+    # chip_smoke.py holds K5 to its plain version element by element on each
+    # row's scale; a legitimately different rounding passes, faults that touch
+    # only late rows or one key of a long row do not.
+    chip_smoke = importlib.import_module("chip_smoke")
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 2048, 128)).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    drop = {
+        "f32 logits and P": lambda i, j: torch.zeros((), dtype=torch.bool),
+        "keys 512-575 skipped by rows >= 1024": lambda i, j: (i >= 1024) & (j >= 512) & (j < 576),
+        "key 0 dropped by rows >= 1024": lambda i, j: (i >= 1024) & (j == 0),
+    }[variant]
+    share = chip_smoke.flash_share(_attention_f32(q, k, v, drop),
+                                   flash_ref.attention(q, k, v, causal=True))
+    assert (share > 1.0) == caught, share
+
+
+def test_flash_faults_edit_the_kernel_source():
+    # tools/flash_faults.py plants each fault by a text edit of the K5 source;
+    # every edit must find its text there exactly once.
+    spec = importlib.util.spec_from_file_location("flash_faults", ROOT / "tools" / "flash_faults.py")
+    faults = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(faults)
+    source = (ROOT / "src" / "repro_torch" / "csrc" / "flash_attention.cu").read_text()
+    assert set(faults.FAULTS) >= {"none", "skip_tile", "no_rescale", "one_key", "f32_skip_tile"}
+    for name, (_, _, edits) in faults.FAULTS.items():
+        assert bool(edits) == (name != "none")
+        for old, _ in edits:
+            assert source.count(old) == 1, name
 
 
 # ---------------------------------------------------------------------------
