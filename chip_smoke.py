@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of the seizure-scoring, training and LM serving
-paths on one CUDA card.
+"""Drive the PyTorch port of the seizure-scoring, training, dense LM
+serving and hybrid LM serving paths on one CUDA card.
 
 Run from the root of a checkout, with no arguments:
 
@@ -64,9 +64,29 @@ Phases (any failure exits non-zero):
      the logits of every step whose context is the same on both paths
      (the prefills among them) within LM_LOGIT_TOL, tokens equal up to
      each request's first step whose plain-path top-2 margin is below
-     LM_MARGIN. Profiler traces of one prefill and one decode step.
-  8. A ``kernels`` JSON line (K1-K5), the card line, and the last line
-     ``{"ok": true, "device": {...}}``.
+     LM_MARGIN. Profiler traces of one prefill and one decode step. The
+     model is freed before phase 8.
+  8. Hybrid LM serving at the full width and depth of zamba2-7b (81 Mamba2
+     blocks behind 14 sites of one shared attention block, 6.75 B
+     parameters drawn from a seeded generator, bf16 compute). K6
+     ssd_chunks against its plain version on every case of SSD_CASES (the
+     static prefill's (896, 8, 256, 64) with a nonzero h_in, a batch-1
+     admission's, L = 77, L = 1, strong and weak decay, float32), each
+     element within SSD_TOL of its row's scale, and ssd_scan end to end;
+     each row printed with its error, time, plain time and bound. A static
+     batch (8 slots, max_seq 4096, prompts of ragged length up to 2048,
+     left-padded to 2048): K6 must launch exactly 162 times (twice per
+     Mamba2 block of the one prefill) and K5 never (head_dim 112).
+     Continuous batching: 10 requests over 4 slots, prompts of 256, 512
+     and 77 tokens (K6 at L = 256 and 77, 162 launches each) and of
+     300-1000 (scan_core's plain path), ragged max_new; every request
+     completes, admissions happen mid-stream. Both runs again with K6's
+     plain version: logits of every same-context step within
+     HY_LOGIT_ULPS bf16 ulps of the largest |logit|, tokens equal up to
+     each request's first plain margin below half of that. Profiler
+     traces of one prefill and one decode step, with K6's share.
+  9. A ``kernels`` JSON line (K1-K6), the script's seconds, the card line,
+     and the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -132,6 +152,66 @@ LM_MARGIN = 0.125
 # f32: one softmax in two orders of summation. tools/flash_faults.py plants
 # faults in the kernel and reads how far over this limit each one lands.
 FLASH_TOL = {"bfloat16": (2.0**-7, 2.0**-5), "float32": (2.0**-17, 2.0**-17)}
+# Phase 8: hybrid serving at the full width of zamba2-7b (random weights).
+HY_ARCH = "zamba2-7b"
+HY_SLOTS = 8
+HY_MAX_SEQ = 4096
+HY_MAX_NEW = 24
+HY_STATIC_LENS = (2048, 1999, 1536, 1234, 1024, 777, 512, 301)  # padded width 2048
+HY_CONT_SLOTS = 4
+HY_CONT_MAX_SEQ = 1024
+# chunk = min(256, S): prompts of 256 and 512 reach K6 at L = 256, the one of
+# 77 at L = 77; 300, 333, 700 and 1000 pass a chunk without being a multiple
+# of it and take scan_core's plain path. Every prompt has at least
+# ssm_conv - 1 = 3 tokens (models/ssm.py).
+HY_CONT_LENS = (256, 512, 77, 300, 256, 700, 512, 333, 256, 1000)
+HY_CONT_MAX_NEW = (8, 14, 6, 10, 12, 5, 9, 7, 11, 6)
+# Kernel path against plain path, bf16 throughout. LM_LOGIT_TOL is 8 bf16
+# ulps of the largest |logit| for 28 blocks whose attention outputs differ
+# by about one ulp between the paths. zamba2-7b stacks 95 blocks (sqrt(95 /
+# 28) ~ 1.8 times the spread), and the plain SSD rounds at more places than
+# K6 does (the decay, q.k, the incoming state and its term, where K6 rounds
+# P and y only), about twice K5's difference per block: 8 x 1.8 x 2 ~ 29,
+# so the tolerance is HY_LOGIT_ULPS = 32 ulps of the largest |logit| this
+# init gives (read from the static prefill), and tokens are compared up to
+# each request's first plain-path top-2 margin below half of it, as LM_MARGIN
+# is half of LM_LOGIT_TOL.
+HY_LOGIT_ULPS = 32
+# K6 against its plain version, element by element: |kernel - plain| <=
+# REL |plain| + ROW max|plain row|, each row of y and of the state at its
+# own scale. bf16: the kernel rounds P and y once each; the plain version
+# also rounds the decay, q.k, their product, the intra-chunk sum, q exp(cum),
+# h_in and the incoming-state term to bf16, each a 2^-9 relative error of
+# terms whose sum is the row's scale: 2^-7 |plain| covers the outputs' last
+# roundings, 2^-5 of the row's largest element the rest. float32: the same
+# products, but cum is a float32 scan in another order than torch.cumsum;
+# at |cum| up to ~2^8 its ulp is 2^-15, and a few ulps of cum move
+# exp(cum_i - cum_j) by ~2^-14 relative: 2^-13 of each.
+# tools/ssd_faults.py plants faults in K6 and reads how far over this limit
+# each one lands.
+SSD_TOL = {"bfloat16": (2.0**-7, 2.0**-5), "float32": (2.0**-13, 2.0**-13)}
+# ssd_scan end to end: on top of the chunk step's roundings, the plain path
+# rounds each chunk's pass-1 state to bf16 (its einsum's output type), where
+# K6 keeps it float32, and pass 2 rounds that incoming state again: one more
+# 2^-9 error in the term that is the scale of a chunk's first rows, so the
+# row share doubles.
+SSD_SCAN_TOL = (2.0**-7, 2.0**-4)
+# K6 cases: (name, BH, NC, L, type, decay), q, k, v ~ N(0, 1), h_in ~ 16 N(0,
+# 1) (a state summed over a chunk of unit k, v). Decays ld = -dt A: "model",
+# dt = softplus(N(0, 1)) and A = exp(A_log), A_log ~ 0.02 N(0, 1), as the
+# model's init draws them (cum near -200 at a chunk's end); "weak", Mamba2's
+# published init (softplus(dt_bias) log-uniform in [1e-3, 0.1], A uniform in
+# [1, 16]), so the incoming state still reaches the late rows; "strong", A =
+# 8, cum below -1000 within the chunk.
+SSD_CASES = (
+    ("static prefill", 8 * 112, 8, 256, "bfloat16", "model"),
+    ("batch-1 admission", 112, 2, 256, "bfloat16", "model"),
+    ("ragged L", 112, 1, 77, "bfloat16", "model"),
+    ("L = 1", 112, 1, 1, "bfloat16", "model"),
+    ("strong decay", 112, 2, 256, "bfloat16", "strong"),
+    ("weak decay", 8 * 112, 8, 256, "bfloat16", "weak"),
+    ("float32", 112, 2, 256, "float32", "model"),
+)
 
 
 def fail(msg: str) -> None:
@@ -176,17 +256,19 @@ def plain_versions():
     from repro_torch.kernels.forest import kernel as fk, ref as fr
     from repro_torch.kernels.gram import kernel as gk, ref as gr
     from repro_torch.kernels.histogram import kernel as hk, ref as hr
+    from repro_torch.kernels.ssd import kernel as sk, ref as sr
     from repro_torch.kernels.wpd import kernel as wk, ref as wr
 
-    saved = (fk.forest_traverse, gk.gram, wk.wpd_level, hk.class_histogram, ak.flash_attention)
-    fk.forest_traverse, gk.gram, wk.wpd_level, hk.class_histogram, ak.flash_attention = (
-        fr.forest_traverse, gr.gram, wr.wpd_level, hr.class_histogram, ar.attention
-    )
+    saved = (fk.forest_traverse, gk.gram, wk.wpd_level, hk.class_histogram, ak.flash_attention,
+             sk.ssd_chunks)
+    (fk.forest_traverse, gk.gram, wk.wpd_level, hk.class_histogram, ak.flash_attention,
+     sk.ssd_chunks) = (fr.forest_traverse, gr.gram, wr.wpd_level, hr.class_histogram,
+                       ar.attention, sr.ssd_chunks)
     try:
         yield
     finally:
         (fk.forest_traverse, gk.gram, wk.wpd_level, hk.class_histogram,
-         ak.flash_attention) = saved
+         ak.flash_attention, sk.ssd_chunks) = saved
 
 
 def _kernel_modules() -> dict:
@@ -194,9 +276,11 @@ def _kernel_modules() -> dict:
     from repro_torch.kernels.forest import kernel as fk
     from repro_torch.kernels.gram import kernel as gk
     from repro_torch.kernels.histogram import kernel as hk
+    from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.kernels.wpd import kernel as wk
 
-    return {"forest": fk, "wpd_level": wk, "gram": gk, "histogram": hk, "flash_attention": ak}
+    return {"forest": fk, "wpd_level": wk, "gram": gk, "histogram": hk, "flash_attention": ak,
+            "ssd_chunks": sk}
 
 
 def launch_counts() -> dict[str, int]:
@@ -1000,19 +1084,18 @@ def lm_recorder(model):
         del model.prefill, model.decode_step
 
 
-def lm_static(model, prompts):
+def lm_static(model, prompts, slots=LM_SLOTS, max_seq=LM_MAX_SEQ, max_new=LM_MAX_NEW):
     """ServeEngine over one static batch: the generated tokens, the
     recorded calls and the wall time of generate()."""
     import torch
 
     from repro_torch.serving.engine import ServeEngine
 
-    engine = ServeEngine(model, max_batch=LM_SLOTS, max_seq=LM_MAX_SEQ, eos_id=-1,
-                         device="cuda")
+    engine = ServeEngine(model, max_batch=slots, max_seq=max_seq, eos_id=-1, device="cuda")
     with lm_recorder(model) as calls:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        outs = engine.generate(prompts, max_new=LM_MAX_NEW)
+        outs = engine.generate(prompts, max_new=max_new)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     return [o.tolist() for o in outs], calls, seconds
@@ -1045,16 +1128,16 @@ def continuous_schedule(max_new, slots):
     return steps, admissions
 
 
-def static_steps(calls, n):
+def static_steps(calls, n, max_new=LM_MAX_NEW):
     """Each static request's steps as (token, top-2 margin, logits row):
     token t of request i is row i of call t (the prefill, then the decode
     steps; the last decode step's tokens are not kept)."""
     seq = calls["prefill"] + calls["decode"]
-    return [[(c["tokens"][i], c["margins"][i], c["logits"][i]) for c in seq[:LM_MAX_NEW]]
+    return [[(c["tokens"][i], c["margins"][i], c["logits"][i]) for c in seq[:max_new]]
             for i in range(n)]
 
 
-def continuous_steps(calls, steps, admissions, n):
+def continuous_steps(calls, steps, admissions, n, max_new=LM_CONT_MAX_NEW):
     """Each continuous request's steps as (token, top-2 margin, logits
     row), read along the schedule: its admission prefill, then each decode
     step that extended it."""
@@ -1063,19 +1146,20 @@ def continuous_steps(calls, steps, admissions, n):
         out[r].append((call["tokens"][0], call["margins"][0], call["logits"][0]))
     for occupants, call in zip(steps, calls["decode"]):
         for i, r in enumerate(occupants):
-            if r is not None and len(out[r]) < LM_CONT_MAX_NEW[r]:
+            if r is not None and len(out[r]) < max_new[r]:
                 out[r].append((call["tokens"][i], call["margins"][i], call["logits"][i]))
     return out
 
 
-def lm_continuous(model, prompts):
+def lm_continuous(model, prompts, slots=LM_CONT_SLOTS, max_seq=LM_CONT_MAX_SEQ,
+                  max_new=LM_CONT_MAX_NEW):
     import torch
 
     from repro_torch.serving.continuous import ContinuousEngine, Request
 
-    engine = ContinuousEngine(model, max_batch=LM_CONT_SLOTS, max_seq=LM_CONT_MAX_SEQ,
-                              eos_id=-1, device="cuda")
-    requests = [Request(p, m) for p, m in zip(prompts, LM_CONT_MAX_NEW)]
+    engine = ContinuousEngine(model, max_batch=slots, max_seq=max_seq, eos_id=-1,
+                              device="cuda")
+    requests = [Request(p, m) for p, m in zip(prompts, max_new)]
     with lm_recorder(model) as calls:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1085,12 +1169,13 @@ def lm_continuous(model, prompts):
     return requests, calls, seconds
 
 
-def compare_paths(label, kernel, plain) -> tuple[float, int, int, int]:
+def compare_paths(label, kernel, plain, tol=LM_LOGIT_TOL, margin=LM_MARGIN
+                  ) -> tuple[float, int, int, int]:
     """kernel, plain: per request, per step (token, top-2 margin, logits
     row). (1) At every step whose context is the same on both paths (the
-    request's earlier tokens equal), the logits agree within LM_LOGIT_TOL.
+    request's earlier tokens equal), the logits agree within ``tol``.
     (2) Tokens are equal up to each request's first step whose plain-path
-    margin is below LM_MARGIN. Returns (max logit difference, steps whose
+    margin is below ``margin``. Returns (max logit difference, steps whose
     logits were compared, steps whose tokens were compared, steps)."""
     diff, n_logits, n_tokens, total = 0.0, 0, 0, 0
     for r, (ks, ps) in enumerate(zip(kernel, plain)):
@@ -1098,43 +1183,50 @@ def compare_paths(label, kernel, plain) -> tuple[float, int, int, int]:
         for t, ((kt, _, kl), (pt, _, pl)) in enumerate(zip(ks, ps)):
             d = float((kl - pl).abs().max())
             diff, n_logits = max(diff, d), n_logits + 1
-            if not d <= LM_LOGIT_TOL:
+            if not d <= tol:
                 fail(f"{label}: request {r} step {t}: logits of the kernel and plain paths "
-                     f"differ by {d} > {LM_LOGIT_TOL} on the same context")
+                     f"differ by {d} > {tol} on the same context")
             if kt != pt:
                 break  # the contexts differ from the next step on
-        stop = next((t for t, step in enumerate(ps) if step[1] < LM_MARGIN), len(ps))
+        stop = next((t for t, step in enumerate(ps) if step[1] < margin), len(ps))
         got, want = [step[0] for step in ks[:stop]], [step[0] for step in ps[:stop]]
         if got != want:
             fail(f"{label}: request {r} tokens differ before its first step with plain "
-                 f"margin < {LM_MARGIN} (step {stop}): {got} vs {want}")
+                 f"margin < {margin} (step {stop}): {got} vs {want}")
         n_tokens += stop
     return diff, n_logits, n_tokens, total
 
 
-def lm_traces(model, tokens) -> None:
+def lm_traces(model, tokens, max_seq=LM_MAX_SEQ, label="lm", ours=None) -> None:
     """Device busy and idle share, and device time by kernel, of one
-    static prefill and of one decode step at 8 slots."""
+    static prefill and of one decode step at the batch of ``tokens``; with
+    ``ours`` (a substring of a kernel's name), that kernel's share of each
+    trace's device time too."""
     import torch
 
-    _, cache = model.prefill({"tokens": tokens}, LM_MAX_SEQ)
+    _, cache = model.prefill({"tokens": tokens}, max_seq)
     step = {"tokens": torch.zeros((tokens.shape[0], 1), dtype=torch.int32, device="cuda")}
     for what, fn, name in (
         (f"one prefill {tuple(tokens.shape)}",
-         lambda: model.prefill({"tokens": tokens}, LM_MAX_SEQ), "lm_prefill_trace"),
-        (f"one decode step ({tokens.shape[0]} slots, cache {LM_MAX_SEQ})",
-         lambda: model.decode_step(cache, step), "lm_decode_trace"),
+         lambda: model.prefill({"tokens": tokens}, max_seq), f"{label}_prefill_trace"),
+        (f"one decode step ({tokens.shape[0]} slots, cache {max_seq})",
+         lambda: model.decode_step(cache, step), f"{label}_decode_trace"),
     ):
         wall_ms, busy_ms, by_name = device_activity(fn, name)
         if busy_ms is None:
-            print(f"lm trace {what}: {wall_ms:.3f} ms wall; the profiler recorded no "
+            print(f"{label} trace {what}: {wall_ms:.3f} ms wall; the profiler recorded no "
                   "device activity: busy and idle share not measured")
             continue
-        print(f"lm trace {what}: {wall_ms:.3f} ms wall (profiler on), device busy "
+        print(f"{label} trace {what}: {wall_ms:.3f} ms wall (profiler on), device busy "
               f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}, "
               f"{sum(n for _, n in by_name.values())} device activities")
         for kname, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
-            print(f"lm trace kernel: {ms:.3f} ms in {n} launches: {kname[:110]}")
+            print(f"{label} trace kernel: {ms:.3f} ms in {n} launches: {kname[:110]}")
+        if ours is not None:
+            mine = [(ms, n) for kname, (ms, n) in by_name.items() if ours in kname]
+            ms, n = sum(m for m, _ in mine), sum(c for _, c in mine)
+            print(f"{label} trace {what}: {ours} {ms:.3f} ms in {n} launches, "
+                  f"{ms / busy_ms:.4f} of the device's busy time")
 
 
 def lm_phase(gen) -> tuple[dict, int]:
@@ -1238,7 +1330,303 @@ def lm_phase(gen) -> tuple[dict, int]:
     del kernel, plain, calls, p_calls
     lm_traces(model, torch.from_numpy(np.stack([
         np.pad(p, (max(LM_STATIC_LENS) - len(p), 0)) for p in static_prompts])).to("cuda"))
+    del model  # phase 8 needs the card's memory
+    torch.cuda.empty_cache()
     return rows, k5_static + k5_cont
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: hybrid serving (zamba2-7b, K6)
+# ---------------------------------------------------------------------------
+
+def ssd_log_decay(x, decay: str, gen):
+    """ld = -dt A for x (BH, ...) ~ N(0, 1), with a per-row (head) A and dt
+    bias drawn by the law ``decay`` names (see SSD_CASES)."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    if decay == "weak":
+        dt0 = torch.exp(torch.empty(shape, device=x.device).uniform_(
+            math.log(1e-3), math.log(0.1), generator=gen))
+        bias = dt0 + torch.log(-torch.expm1(-dt0))  # softplus(bias) = dt0
+        a = torch.empty(shape, device=x.device).uniform_(1.0, 16.0, generator=gen)
+        return -F.softplus(x + bias) * a
+    if decay == "strong":
+        return -F.softplus(x) * 8.0
+    a_log = 0.02 * torch.randn(shape, generator=gen, device=x.device)
+    return -F.softplus(x) * torch.exp(a_log)
+
+
+def ssd_inputs(gen, bh: int, nc: int, l: int, dtype: str, decay: str):
+    """q, k, v (bh, nc, l, 64), ld (bh, nc, l) of ``dtype``, h_in (bh, nc,
+    64, 64) float32."""
+    import torch
+
+    dt = getattr(torch, dtype)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=gen.device)
+
+    q, k, v = (randn(bh, nc, l, 64).to(dt) for _ in range(3))
+    ld = ssd_log_decay(randn(bh, nc, l), decay, gen).to(dt)
+    return q, k, v, ld, 16.0 * randn(bh, nc, 64, 64)
+
+
+def ssd_share(got, want, dtype: str, tol=None) -> float:
+    """The largest share of its tolerance (SSD_TOL[dtype], or ``tol``) that
+    any element of K6's output ``got`` (y or the state) uses against the
+    plain version's ``want``, each row (last axis) at its own scale."""
+    rel, row = SSD_TOL[dtype] if tol is None else tol
+    got, want = got.float(), want.float()
+    tol = rel * want.abs() + row * want.abs().amax(-1, keepdim=True)
+    return float(((got - want).abs() / tol).max())
+
+
+def ssd_bound(bh: int, nc: int, l: int, dtype: str) -> tuple[float, str]:
+    """Least time for ssd_chunks on (bh, nc, l, 64): q, k, v, ld, h_in read
+    and y, the state written once, against the causal q k^T and P v
+    (64 L (L + 1) MACs per chunk, on the tensor cores in bf16) and q h_in
+    plus the state (2 L 64^2 MACs, float32), each at its type's peak."""
+    es = 2 if dtype == "bfloat16" else 4
+    n = bh * nc
+    n_bytes = n * (4 * l * 64 * es + l * es + 2 * 64 * 64 * 4)
+    tc_flops = n * 2.0 * 64 * l * (l + 1)
+    f32_flops = n * 4.0 * l * 64 * 64
+    if dtype == "bfloat16":
+        t_ops = max(tc_flops / BF16_FLOP_PER_S, f32_flops / FP32_FLOP_PER_S) * 1e3
+    else:
+        t_ops = (tc_flops + f32_flops) / FP32_FLOP_PER_S * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ssd_case_inputs(gen) -> list:
+    """[(case, inputs, the plain version's (y, state))] for SSD_CASES."""
+    from repro_torch.kernels.ssd import ref as sr
+
+    out = []
+    for case in SSD_CASES:
+        inputs = ssd_inputs(gen, *case[1:])
+        out.append((case, inputs, sr.ssd_chunks(*inputs)))
+    return out
+
+
+def ssd_shares(case, inputs, want) -> tuple[float, float, float]:
+    """K6 on one case's inputs: (share of y, share of the state, max abs
+    error of either)."""
+    import torch
+
+    from repro_torch.kernels.ssd import kernel as sk
+
+    got = sk.ssd_chunks(*inputs)
+    torch.cuda.synchronize()
+    dtype = case[4]
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    return ssd_share(got[0], want[0], dtype), ssd_share(got[1], want[1], dtype), err
+
+
+def check_ssd(gen) -> dict[str, dict]:
+    """K6 against its plain version on every case of SSD_CASES, element by
+    element within SSD_TOL, then ssd_scan end to end (y and the final
+    state, two K6 launches around the inter-chunk loop) at the static
+    prefill's (896, 2048, 64) against ssd_scan through the plain version,
+    within SSD_SCAN_TOL; the row also gives each path's share of that
+    tolerance against the plain scan of float32 copies of the inputs."""
+    import torch
+
+    from repro_torch.kernels.ssd import kernel as sk, ops as so, ref as sr
+
+    rows = {}
+    for case, inputs, want in ssd_case_inputs(gen):
+        name, bh, nc, l, dtype, decay = case
+        share_y, share_s, err = ssd_shares(case, inputs, want)
+        rel, row = SSD_TOL[dtype]
+        label = f"ssd_chunks/{name} ({bh}, {nc}, {l}, 64) {dtype} {decay} decay"
+        if not max(share_y, share_s) <= 1.0:
+            fail(f"{label}: K6 disagrees with its plain version: an element of y uses "
+                 f"{share_y}, of the state {share_s}, of its tolerance {rel:.3g} |plain| + "
+                 f"{row:.3g} max|plain row|")
+        cum_min = float(torch.cumsum(inputs[3].float(), -1).min())
+        if decay == "strong" and not cum_min < -1000:
+            fail(f"{label}: cum reaches only {cum_min}, not below -1000")
+        b_ms, b_by = ssd_bound(bh, nc, l, dtype)
+        reps = {} if bh * nc <= 1024 else dict(launches=5, reps=5)
+        rows[label] = dict(
+            shape=f"q, k, v ({bh}, {nc}, {l}, 64), h_in nonzero, min cum {cum_min:.1f}",
+            max_abs_err=err, tol=None,
+            note=f"tol per element {rel:.3g} |plain| + {row:.3g} max|plain row|, the worst "
+                 f"element of y uses {share_y:.4f} of it, of the state {share_s:.4f}",
+            ms=time_ms(lambda: sk.ssd_chunks(*inputs)),
+            plain_ms=time_ms(lambda: sr.ssd_chunks(*inputs), **reps),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        )
+    for decay in ("model", "weak"):
+        q, k, v, ld, _ = ssd_inputs(gen, 8 * 112, 1, 2048, "bfloat16", decay)
+        args = (q[:, 0], k[:, 0], v[:, 0], ld[:, 0])
+        got = so.ssd_scan(*args)
+        with plain_versions():
+            want = so.ssd_scan(*args)
+            plain_ms = time_ms(lambda: so.ssd_scan(*args), launches=5, reps=5)
+            exact = so.ssd_scan(*(t.float() for t in args))
+        share_y = ssd_share(got[0], want[0], "bfloat16", SSD_SCAN_TOL)
+        share_s = ssd_share(got[1], want[1], "bfloat16", SSD_SCAN_TOL)
+        vs_f32 = {path: max(ssd_share(r[0], exact[0], "bfloat16", SSD_SCAN_TOL),
+                            ssd_share(r[1], exact[1], "bfloat16", SSD_SCAN_TOL))
+                  for path, r in (("kernel", got), ("plain", want))}
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        label = f"ssd_scan/static prefill (896, 2048, 64) bfloat16 {decay} decay"
+        rel, row = SSD_SCAN_TOL
+        if not max(share_y, share_s) <= 1.0:
+            fail(f"{label}: ssd_scan through K6 disagrees with its plain version: y uses "
+                 f"{share_y}, the final state {share_s}, of its tolerance")
+        b_ms, b_by = ssd_bound(8 * 112, 8, 256, "bfloat16")
+        rows[label] = dict(
+            shape="two K6 launches at (896, 8, 256, 64) and the chunk loop",
+            max_abs_err=err, tol=None,
+            note=f"tol per element {rel:.3g} |plain| + {row:.3g} max|plain row|, the worst "
+                 f"element of y uses {share_y:.4f} of it, of the final state {share_s:.4f}; "
+                 f"against the float32 scan the kernel path uses {vs_f32['kernel']:.4f}, the "
+                 f"plain path {vs_f32['plain']:.4f}; bound: the two launches'",
+            ms=time_ms(lambda: so.ssd_scan(*args), launches=5, reps=5),
+            plain_ms=plain_ms, library_ms=None, bound_ms=2 * b_ms, bound_by=b_by,
+        )
+        del q, k, v, ld, args, got, want, exact
+    print_kernel_rows(rows)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def hybrid_phase(gen) -> tuple[dict, int]:
+    """Phase 8. Returns the K6 rows and K6's launches in the two engine
+    runs through the kernels."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    rows = check_ssd(gen)
+    cfg = get_config(HY_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build(cfg).init(torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    model.compute_params()
+    torch.cuda.synchronize()
+    n_full, rem, per = model._hybrid_shape()
+    print(f"hybrid model: {cfg.name}, {model.param_count():,} parameters (float32 master + "
+          f"bf16 compute copy, {torch.cuda.memory_allocated() / 1e9:.2f} GB), {cfg.n_layers} "
+          f"Mamba2 blocks in {n_full} groups of {per} + {rem} behind {model.n_attn_sites} "
+          f"sites of one shared attention block, d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}, {cfg.n_ssm_heads} SSM heads of "
+          f"{cfg.ssm_head_dim} x state {cfg.ssm_state}, vocab {cfg.vocab_size}; drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    static_prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+                      for n in HY_STATIC_LENS]
+    cont_prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+                    for n in HY_CONT_LENS]
+    static = dict(slots=HY_SLOTS, max_seq=HY_MAX_SEQ)
+    cont = dict(slots=HY_CONT_SLOTS, max_seq=HY_CONT_MAX_SEQ, max_new=HY_CONT_MAX_NEW)
+
+    # Static batch through the kernels (after one short warm-up generate).
+    lm_static(model, static_prompts[:2], max_new=2, **static)
+    reset_counts()
+    toks, calls, seconds = lm_static(model, static_prompts, max_new=HY_MAX_NEW, **static)
+    counts = launch_counts()
+    k6_static = counts["ssd_chunks"]
+    pre_s = calls["prefill"][0]["seconds"]
+    dec = [c["seconds"] for c in calls["decode"]]
+    n_tok = sum(len(t) for t in toks)
+    max_logit = float(calls["prefill"][0]["logits"].abs().max())
+    tol = HY_LOGIT_ULPS * 2.0 ** (math.floor(math.log2(max_logit)) - 7)
+    margin = tol / 2
+    print(f"hybrid static: {HY_SLOTS} slots, prompts {HY_STATIC_LENS} (padded width "
+          f"{max(HY_STATIC_LENS)}), max_seq {HY_MAX_SEQ}, {HY_MAX_NEW} new tokens each: "
+          f"prefill {pre_s * 1e3:.3f} ms, decode {statistics.median(dec) * 1e3:.3f} ms per "
+          f"step (median of {len(dec)}), {n_tok} tokens in {seconds:.3f} s = "
+          f"{n_tok / seconds:.1f} generated tokens/s ({HY_SLOTS / statistics.median(dec):.1f} "
+          f"tokens/s in decode); K6 launches {k6_static}, K5 {counts['flash_attention']}; "
+          f"largest |logit| of the prefill {max_logit:.3f}, so the logit tolerance is "
+          f"{tol} ({HY_LOGIT_ULPS} bf16 ulps) and the token margin {margin}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if k6_static != 2 * cfg.n_layers:
+        fail(f"K6 launched {k6_static} times in the static run, expected {2 * cfg.n_layers}")
+    if counts["flash_attention"]:
+        fail("K5 launched in the hybrid run (head_dim 112 keeps its gate shut)")
+    for row in calls["prefill"][0]["logits"], *(c["logits"] for c in calls["decode"]):
+        if not bool(torch.isfinite(row).all()):
+            fail("non-finite logits in the hybrid static run")
+    reset_counts()
+    with plain_versions():
+        p_toks, p_calls, p_seconds = lm_static(model, static_prompts, max_new=HY_MAX_NEW,
+                                               **static)
+    if any(launch_counts().values()):
+        fail("a kernel launched during the plain hybrid run")
+    n = len(static_prompts)
+    kernel = static_steps(calls, n, HY_MAX_NEW)
+    plain = static_steps(p_calls, n, HY_MAX_NEW)
+    if ([[st[0] for st in r] for r in kernel] != toks
+            or [[st[0] for st in r] for r in plain] != p_toks):
+        fail("hybrid static run: the recorded calls do not replay the generated tokens")
+    diff, n_logits, n_tokens, total = compare_paths("hybrid static", kernel, plain, tol, margin)
+    print(f"hybrid static plain path: prefill {p_calls['prefill'][0]['seconds'] * 1e3:.3f} ms, "
+          f"{n_tok / p_seconds:.1f} generated tokens/s; logits on the same context differ by "
+          f"at most {diff:.4e} (tol {tol}) over {n_logits} of {total} steps; tokens equal on "
+          f"{n_tokens} of {total} steps (each request up to its first plain margin < {margin})")
+    del kernel, plain, calls, p_calls
+
+    # Continuous batching over 4 slots.
+    steps, admissions = continuous_schedule(HY_CONT_MAX_NEW, HY_CONT_SLOTS)
+    reset_counts()
+    reqs, calls, seconds = lm_continuous(model, cont_prompts, **cont)
+    k6_cont = launch_counts()["ssd_chunks"]
+    gated = sum(n <= cfg.ssm_chunk or n % cfg.ssm_chunk == 0 for n in HY_CONT_LENS)
+    want_k6 = 2 * cfg.n_layers * gated
+    mid = sum(step >= 0 for step, _, _ in admissions)
+    if not all(r.done and len(r.out) == m for r, m in zip(reqs, HY_CONT_MAX_NEW)):
+        fail(f"hybrid continuous run: not every request completed: {[len(r.out) for r in reqs]}")
+    if k6_cont != want_k6 or len(calls["decode"]) != len(steps) or mid == 0:
+        fail(f"hybrid continuous run: K6 {k6_cont} launches (expected {want_k6}), "
+             f"{len(calls['decode'])} decode steps (schedule {len(steps)}), {mid} mid-stream "
+             "admissions")
+    kernel = continuous_steps(calls, steps, admissions, len(reqs), HY_CONT_MAX_NEW)
+    if [[st[0] for st in r] for r in kernel] != [r.out for r in reqs]:
+        fail("hybrid continuous run: the recorded calls do not replay the requests' tokens")
+    n_tok = sum(len(r.out) for r in reqs)
+    print(f"hybrid continuous: {len(reqs)} requests over {HY_CONT_SLOTS} slots, prompts "
+          f"{HY_CONT_LENS}, max_new {HY_CONT_MAX_NEW}: all complete; {len(steps)} decode "
+          f"steps, {mid} admissions mid-stream; {n_tok} tokens in {seconds:.3f} s = "
+          f"{n_tok / seconds:.1f} tokens/s; decode "
+          f"{statistics.median(c['seconds'] for c in calls['decode']) * 1e3:.3f} ms per step "
+          f"(median); K6 launches {k6_cont} ({gated} prompts through K6, {2 * cfg.n_layers} "
+          "each)")
+    reset_counts()
+    with plain_versions():
+        p_reqs, p_calls, p_seconds = lm_continuous(model, cont_prompts, **cont)
+    if any(launch_counts().values()):
+        fail("a kernel launched during the plain hybrid continuous run")
+    plain = continuous_steps(p_calls, steps, admissions, len(p_reqs), HY_CONT_MAX_NEW)
+    if [[st[0] for st in r] for r in plain] != [r.out for r in p_reqs]:
+        fail("plain hybrid continuous run: the recorded calls do not replay the tokens")
+    diff, n_logits, n_tokens, total = compare_paths("hybrid continuous", kernel, plain, tol,
+                                                    margin)
+    print(f"hybrid continuous plain path: {n_tok / p_seconds:.1f} tokens/s; logits on the "
+          f"same context differ by at most {diff:.4e} (tol {tol}) over {n_logits} of {total} "
+          f"steps; tokens equal on {n_tokens} of {total} steps (each request up to its first "
+          f"plain margin < {margin})")
+    del kernel, plain, calls, p_calls
+    lm_traces(model, torch.from_numpy(np.stack([
+        np.pad(p, (max(HY_STATIC_LENS) - len(p), 0)) for p in static_prompts])).to("cuda"),
+        HY_MAX_SEQ, "hybrid", "ssd_chunk")
+    print(f"hybrid peak memory: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated "
+          f"at most in the phase")
+    del model
+    torch.cuda.empty_cache()
+    return rows, k6_static + k6_cont
 
 
 def print_kernel_rows(rows: dict) -> None:
@@ -1266,6 +1654,7 @@ def main() -> int:
         return 2
 
     # Phase 1: the card, and the kernel build.
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1333,18 +1722,24 @@ def main() -> int:
     flash_rows, launches["flash_attention"] = lm_phase(gen)
     rows.update(flash_rows)
 
+    # Phase 8.
+    ssd_rows, launches["ssd_chunks"] = hybrid_phase(gen)
+    rows.update(ssd_rows)
+
     sources = {"forest": "forest.cu", "wpd_level": "wpd_level.cu", "gram": "gram.cu",
-               "histogram": "histogram.cu", "flash_attention": "flash_attention.cu"}
+               "histogram": "histogram.cu", "flash_attention": "flash_attention.cu",
+               "ssd_chunks": "ssd_chunks.cu"}
     replaces = {
         "forest": "src/repro/kernels/forest/kernel.py:73",
         "wpd_level": "src/repro/kernels/wpd/kernel.py:86",
         "gram": "src/repro/kernels/gram/kernel.py:66",
         "histogram": "src/repro/kernels/histogram/kernel.py:77",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:103",
+        "ssd_chunks": "src/repro/kernels/ssd/kernel.py:74",
     }
     main_rows = {"forest": "forest", "wpd_level": "wpd_level/2048", "gram": "gram/1024x180",
                  "histogram": f"histogram/{max(int(k.split('/')[1]) for k in hist_rows)}",
-                 "flash_attention": next(iter(flash_rows))}
+                 "flash_attention": next(iter(flash_rows)), "ssd_chunks": next(iter(ssd_rows))}
     line = {"kernels": [
         {
             "name": k, "route": "cuda",
@@ -1357,6 +1752,7 @@ def main() -> int:
         for k, r in main_rows.items()
     ]}
     print(json.dumps(line))
+    print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

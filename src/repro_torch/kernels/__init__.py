@@ -7,6 +7,6 @@ contract) and ``ops.py`` (routes a CPU tensor to the plain version and a
 CUDA tensor to the kernel).
 """
 
-from repro_torch.kernels import build, flash_attention, forest, gram, histogram, wpd
+from repro_torch.kernels import build, flash_attention, forest, gram, histogram, ssd, wpd
 
-__all__ = ["build", "flash_attention", "forest", "gram", "histogram", "wpd"]
+__all__ = ["build", "flash_attention", "forest", "gram", "histogram", "ssd", "wpd"]

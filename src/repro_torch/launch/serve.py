@@ -4,6 +4,9 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --reduced --device cpu
 
+The dense and hybrid (zamba2-7b) families run; the other archs raise
+``NotImplementedError``.
+
 Parameters are drawn from ``torch.Generator(...).manual_seed(--seed)``
 (not the reference's ``jax.random`` numbers) and the prompts from numpy
 with the same seed, as the reference draws them.

@@ -7,7 +7,10 @@ carries its OWN absolute position (per-slot ``pos`` in the cache, see
 refilled from the queue: the new prompt is prefilled at batch=1 and its
 cache leaves are spliced into the live batch cache at the slot index
 (``_splice``, which locates the batch axis of every leaf by shape
-difference).
+difference: axis 1 of the stacked K/V ``(L or sites, B, S, K, hd)``,
+axis 2 of a hybrid model's ``mamba`` leaves ``(n_full, per, B, ...)``,
+axis 1 of its ``mamba_rest``, axis 0 of ``pos``). A hybrid model's
+prompts have at least ``ssm_conv - 1`` tokens (see ``models.ssm``).
 """
 
 from __future__ import annotations

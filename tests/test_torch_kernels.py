@@ -284,7 +284,8 @@ def test_kernel_library_is_keyed_by_the_sources():
     path = build.library_path()
     assert path.parent == ROOT / "build" / "repro_torch"
     assert path == build.library_path()
-    assert {p.name for p in build._sources()} >= {"forest.cu", "gram.cu", "histogram.cu", "wpd_level.cu"}
+    assert {p.name for p in build._sources()} >= {"forest.cu", "gram.cu", "histogram.cu", "wpd_level.cu",
+                                                  "flash_attention.cu", "ssd_chunks.cu"}
 
 
 # ---------------------------------------------------------------------------

@@ -72,23 +72,24 @@ FAULTS = {
 }
 
 
-def build_variants(build, tmp: Path) -> dict[str, Path]:
-    """Each variant's library (K5 and the shared error entry), all nvcc
-    processes started together."""
-    source = (build.CSRC / "flash_attention.cu").read_text()
+def build_variants(build, tmp: Path, source: str = "flash_attention.cu",
+                   faults: dict = FAULTS) -> dict[str, Path]:
+    """Each variant's library (the edited ``source`` and the shared error
+    entry), all nvcc processes started together."""
+    text0 = (build.CSRC / source).read_text()
     nvcc = build._nvcc()
     jobs = []
-    for name, (_, _, edits) in FAULTS.items():
-        text = source
+    for name, (_, _, edits) in faults.items():
+        text = text0
         for old, new in edits:
             if text.count(old) != 1:
                 raise SystemExit(f"{name}: the text to edit is not in the source exactly once")
             text = text.replace(old, new)
         d = tmp / name
         d.mkdir()
-        (d / "flash_attention.cu").write_text(text)
+        (d / source).write_text(text)
         shutil.copy(build.CSRC / "common.cu", d)
-        objs = [d / "flash_attention.o", d / "common.o"]
+        objs = [d / Path(source).with_suffix(".o").name, d / "common.o"]
         procs = [subprocess.Popen([nvcc, *build.NVCC_FLAGS, "-c", str(o.with_suffix(".cu")),
                                    "-o", str(o)], stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True) for o in objs]
@@ -99,7 +100,7 @@ def build_variants(build, tmp: Path) -> dict[str, Path]:
             out, _ = proc.communicate()
             if proc.returncode:
                 raise SystemExit(f"nvcc failed on the {name} variant:\n{out}")
-        libs[name] = d / "libk5.so"
+        libs[name] = d / "libvariant.so"
         subprocess.run([nvcc, "-shared", "-o", str(libs[name]), *map(str, objs)],
                        check=True, capture_output=True)
     return libs
