@@ -48,11 +48,14 @@ Phases (any failure exits non-zero):
      must be exact.
   7. LM serving at the full width of qwen3-0.6b (28 layers, 751.6 M
      parameters drawn from a seeded generator, bf16 compute). K5
-     flash_attention against its plain version at the static prefill's
-     shape (128, 2048, 128) causal in bf16 and f32, at a batch-1
-     admission's, a ragged S, a non-causal and an hd-64 case, each held
-     element by element within FLASH_TOL of its query row's scale and
-     printed with its error, time, plain and SDPA times and bound. A static batch
+     flash_attention against its plain version in the model's layout with
+     GQA, as the kernel reads it in place (q (B, S, 16, hd), k and v (B, S,
+     8, hd); the plain version expands the KV groups as ops.py does for a
+     CPU tensor): the static prefill's launch (8, 2048) causal in bf16 and
+     f32, a batch-1 admission's, a ragged S, a non-causal and an hd-64
+     case, each held element by element within FLASH_TOL of its query
+     row's scale and printed with its error, time, plain time, SDPA's time
+     on the expanded (1, B*H, S, hd) tensors and bound. A static batch
      (``ServeEngine``, 8 slots, max_seq 4096, prompts of ragged length up
      to 2048, 32 new tokens each): K5 must launch exactly 28 times (once
      per layer of the one prefill); prefill ms, decode ms per step and
@@ -64,8 +67,9 @@ Phases (any failure exits non-zero):
      the logits of every step whose context is the same on both paths
      (the prefills among them) within LM_LOGIT_TOL, tokens equal up to
      each request's first step whose plain-path top-2 margin is below
-     LM_MARGIN. Profiler traces of one prefill and one decode step. The
-     model is freed before phase 8.
+     LM_MARGIN. Profiler traces of one prefill and one decode step, with
+     K5's share and the copies' beside it. The model is freed before
+     phase 8.
   8. Hybrid LM serving at the full width and depth of zamba2-7b (81 Mamba2
      blocks behind 14 sites of one shared attention block, 6.75 B
      parameters drawn from a seeded generator, bf16 compute). K6
@@ -252,7 +256,7 @@ def bound_ms(n_bytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S
 def plain_versions():
     """Route CUDA tensors to the plain versions for the duration (the
     wrappers' kernel entries are swapped for the ref functions)."""
-    from repro_torch.kernels.flash_attention import kernel as ak, ref as ar
+    from repro_torch.kernels.flash_attention import kernel as ak, ops as ao
     from repro_torch.kernels.forest import kernel as fk, ref as fr
     from repro_torch.kernels.gram import kernel as gk, ref as gr
     from repro_torch.kernels.histogram import kernel as hk, ref as hr
@@ -263,7 +267,7 @@ def plain_versions():
              sk.ssd_chunks)
     (fk.forest_traverse, gk.gram, wk.wpd_level, hk.class_histogram, ak.flash_attention,
      sk.ssd_chunks) = (fr.forest_traverse, gr.gram, wr.wpd_level, hr.class_histogram,
-                       ar.attention, sr.ssd_chunks)
+                       ao.reference, sr.ssd_chunks)
     try:
         yield
     finally:
@@ -997,40 +1001,50 @@ def flash_share(got, want) -> float:
     return float(((got - want).abs() / tol).max())
 
 
-def flash_row(gen, bh: int, s: int, hd: int, dtype, causal: bool) -> dict:
-    """K5 against its plain version on random q, k, v (bh, s, hd), element
-    by element within FLASH_TOL. Timed beside
-    F.scaled_dot_product_attention (a yardstick the port never calls) and
-    its bound: causal work counts the S(S+1)/2 pairs a causal mask keeps,
-    4 hd flops each, at the type's peak rate."""
+def flash_row(gen, b: int, s: int, h: int, kv: int, hd: int, dtype, causal: bool) -> dict:
+    """K5 against its plain version on random q (b, s, h, hd) and k, v (b,
+    s, kv, hd) in the model's layout, element by element within FLASH_TOL;
+    the plain version is ``ops.reference`` (the KV groups expanded and (B,
+    H) flattened, as ops.py does for a CPU tensor). Timed beside
+    F.scaled_dot_product_attention on the expanded (1, B*H, S, hd) tensors
+    (a yardstick the port never calls) and its bound: q, k, v read and the
+    output written once; causal work counts the S(S+1)/2 pairs a causal
+    mask keeps, 4 hd flops each, at the type's peak rate."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import kernel as ak, ref as ar
+    from repro_torch.kernels.flash_attention import kernel as ak, ops as ao
 
-    q, k, v = (torch.randn((bh, s, hd), generator=gen, device=gen.device).to(dtype)
-               for _ in range(3))
-    got, want = ak.flash_attention(q, k, v, causal=causal), ar.attention(q, k, v, causal=causal)
+    def randn(heads):
+        return torch.randn((b, s, heads, hd), generator=gen, device=gen.device).to(dtype)
+
+    q, k, v = randn(h), randn(kv), randn(kv)
+    got, want = ak.flash_attention(q, k, v, causal=causal), ao.reference(q, k, v, causal=causal)
     torch.cuda.synchronize()
+    bh = b * h
+    qf, kf, vf = (t.repeat_interleave(h // t.shape[2], dim=2).transpose(1, 2)
+                  .reshape(1, bh, s, hd).contiguous() for t in (q, k, v))
     err = float((got.float() - want.float()).abs().max())
     share = flash_share(got, want)
     rel, row = FLASH_TOL[str(dtype).split(".")[-1]]
-    name = f"flash_attention/{s}x{hd} {str(dtype).split('.')[-1]} {'causal' if causal else 'full'}"
+    name = (f"flash_attention/{b}x{s}x{h}:{kv}x{hd} {str(dtype).split('.')[-1]} "
+            f"{'causal' if causal else 'full'}")
     if not share <= 1.0:
         fail(f"{name} kernel disagrees with its plain version: an element uses {share} "
              f"of its tolerance {rel:.3g} |plain| + {row:.3g} max|plain row|")
     pairs = s * (s + 1) / 2 if causal else float(s * s)
     rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
-    b_ms, b_by = bound_ms(4 * q.numel() * q.element_size(), 4.0 * hd * bh * pairs, rate)
+    b_ms, b_by = bound_ms((2 * q.numel() + 2 * k.numel()) * q.element_size(),
+                          4.0 * hd * bh * pairs, rate)
     reps = dict(launches=5, reps=5) if dtype == torch.float32 else {}
     return dict(
-        shape=f"q, k, v ({bh}, {s}, {hd})", max_abs_err=err, tol=None,
+        shape=f"q {tuple(q.shape)}, k, v {tuple(k.shape)}", max_abs_err=err, tol=None,
         note=f"tol per element {rel:.3g} |plain| + {row:.3g} max|plain row|, the worst "
              f"element uses {share:.4f} of it",
         ms=time_ms(lambda: ak.flash_attention(q, k, v, causal=causal), **reps),
-        plain_ms=time_ms(lambda: ar.attention(q, k, v, causal=causal), **reps),
+        plain_ms=time_ms(lambda: ao.reference(q, k, v, causal=causal), **reps),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q[None], k[None], v[None], is_causal=causal), **reps),
+            qf, kf, vf, is_causal=causal), **reps),
         bound_ms=b_ms, bound_by=b_by, name=name,
     )
 
@@ -1039,12 +1053,13 @@ def check_flash(gen) -> dict[str, dict]:
     import torch
 
     rows = {}
-    for args in ((128, 2048, 128, torch.bfloat16, True),   # the static prefill's shape
-                 (128, 2048, 128, torch.float32, True),
-                 (16, 1024, 128, torch.bfloat16, True),    # a batch-1 admission prefill
-                 (16, 1000, 128, torch.bfloat16, True),    # ragged S, masked in the kernel
-                 (64, 1024, 128, torch.bfloat16, False),
-                 (64, 1024, 64, torch.bfloat16, True)):
+    # (B, S, H, KV, hd): qwen3-0.6b's 16 q heads over 8 KV heads of 128.
+    for args in ((8, 2048, 16, 8, 128, torch.bfloat16, True),   # the static prefill's launch
+                 (8, 2048, 16, 8, 128, torch.float32, True),
+                 (1, 1024, 16, 8, 128, torch.bfloat16, True),    # a batch-1 admission prefill
+                 (1, 1000, 16, 8, 128, torch.bfloat16, True),    # ragged S, masked in the kernel
+                 (4, 1024, 16, 8, 128, torch.bfloat16, False),
+                 (4, 1024, 16, 8, 64, torch.bfloat16, True)):
         r = flash_row(gen, *args)
         rows[r.pop("name")] = r
     print_kernel_rows(rows)
@@ -1201,7 +1216,8 @@ def lm_traces(model, tokens, max_seq=LM_MAX_SEQ, label="lm", ours=None) -> None:
     """Device busy and idle share, and device time by kernel, of one
     static prefill and of one decode step at the batch of ``tokens``; with
     ``ours`` (a substring of a kernel's name), that kernel's share of each
-    trace's device time too."""
+    trace's device time too, beside the time of the copies (memcpy
+    activities and copy kernels)."""
     import torch
 
     _, cache = model.prefill({"tokens": tokens}, max_seq)
@@ -1225,8 +1241,12 @@ def lm_traces(model, tokens, max_seq=LM_MAX_SEQ, label="lm", ours=None) -> None:
         if ours is not None:
             mine = [(ms, n) for kname, (ms, n) in by_name.items() if ours in kname]
             ms, n = sum(m for m, _ in mine), sum(c for _, c in mine)
+            copies = [(ms, n) for kname, (ms, n) in by_name.items()
+                      if "copy" in kname.lower() or "memcpy" in kname.lower()]
+            c_ms, c_n = sum(m for m, _ in copies), sum(c for _, c in copies)
             print(f"{label} trace {what}: {ours} {ms:.3f} ms in {n} launches, "
-                  f"{ms / busy_ms:.4f} of the device's busy time")
+                  f"{ms / busy_ms:.4f} of the device's busy time; copies {c_ms:.3f} ms in "
+                  f"{c_n} activities, {c_ms / busy_ms:.4f}")
 
 
 def lm_phase(gen) -> tuple[dict, int]:
@@ -1329,7 +1349,8 @@ def lm_phase(gen) -> tuple[dict, int]:
           f"its first plain margin < {LM_MARGIN})")
     del kernel, plain, calls, p_calls
     lm_traces(model, torch.from_numpy(np.stack([
-        np.pad(p, (max(LM_STATIC_LENS) - len(p), 0)) for p in static_prompts])).to("cuda"))
+        np.pad(p, (max(LM_STATIC_LENS) - len(p), 0)) for p in static_prompts])).to("cuda"),
+        ours="flash_fwd")
     del model  # phase 8 needs the card's memory
     torch.cuda.empty_cache()
     return rows, k5_static + k5_cont

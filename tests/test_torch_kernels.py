@@ -192,6 +192,68 @@ def test_gram_batched_and_transposed_view():
     _close(got, want, 1e-5)
 
 
+def _gram_emulated(x: np.ndarray, n_split: int, chunk: int) -> np.ndarray:
+    """K3's schedule in float32 on the host: the upper 64 x 64 tiles only,
+    each split's partial summed in ascending sample order, the partials
+    summed in split order from zero, each tile written with its mirror."""
+    n, p = x.shape
+    tile = gram_kernel.TILE
+    tiles = -(-p // tile)
+    xp = np.zeros((n, tiles * tile), np.float32)
+    xp[:, :p] = x
+    out = np.full((tiles * tile, tiles * tile), np.nan, np.float32)
+    for ti in range(tiles):
+        for tj in range(ti, tiles):
+            a, b = xp[:, ti * tile:(ti + 1) * tile], xp[:, tj * tile:(tj + 1) * tile]
+            total = np.zeros((tile, tile), np.float32)
+            for s in range(n_split):
+                acc = np.zeros((tile, tile), np.float32)
+                for k in range(s * chunk, min(n, (s + 1) * chunk)):
+                    acc += np.outer(a[k], b[k])
+                total += acc
+            out[ti * tile:(ti + 1) * tile, tj * tile:(tj + 1) * tile] = total
+            out[tj * tile:(tj + 1) * tile, ti * tile:(ti + 1) * tile] = total.T
+    return out[:p, :p]
+
+
+@pytest.mark.parametrize("p, n", [(180, 1024), (186, 1024), (180, 64), (186, 64)])
+def test_gram_split_schedule_matches_jax_ref(p, n):
+    """The kernel's split-and-fixed-order summation, emulated in float32
+    at the plans split_plan gives a fit (batch 1) and an engine step
+    (batch 32) on 132 SMs, and at the finest split (one slab each)."""
+    rng = np.random.default_rng(p + n)
+    x = rng.normal(size=(n, p)).astype(np.float32)
+    want = np.asarray(jgram_ref.gram(jnp.asarray(x)))
+    slab = gram_kernel.SLAB
+    plans = {gram_kernel.split_plan(batch, n, p, 132) for batch in (1, 32)}
+    plans.add((-(-n // slab), slab))
+    assert max(s for s, _ in plans) > 1
+    for n_split, chunk in sorted(plans):
+        assert chunk % slab == 0 and (n_split - 1) * chunk < n <= n_split * chunk
+        got = _gram_emulated(x, n_split, chunk)
+        assert not np.isnan(got).any()
+        _close(got, want, 1e-5)
+
+
+def test_gram_split_plan_and_load_mode():
+    """The splits chip_smoke.py's shapes get on 132 SMs, and how each
+    layout is staged: pca.fit_T's transposed view in 16-byte copies along
+    the samples, a contiguous block along the variables, odd strides in
+    4-byte copies."""
+    plan = gram_kernel.split_plan
+    assert plan(32, 1024, 180, 132) == (2, 512)   # an engine step's finest scale
+    assert plan(1, 1024, 180, 132) == (32, 32)    # a fit's: 6 tiles, one slab per block
+    assert plan(32, 64, 186, 132) == (1, 64)      # the coarsest scale with a halo
+    assert plan(1, 256, 180, 132) == (8, 32)
+    assert plan(1, 128, 180, 132) == (1, 128)     # under 8 slabs: one launch
+    assert plan(1, 64, 186, 132) == (1, 64)
+    assert gram_kernel.upper_tiles(180) == 6 and gram_kernel.upper_tiles(186) == 6
+    mode = gram_kernel.load_mode
+    assert mode(torch.zeros(32, 180, 1024).transpose(1, 2)) == 0
+    assert mode(torch.zeros(32, 1024, 180)) == 1
+    assert mode(torch.zeros(3, 200, 97)[:, ::2, 1:]) == 2
+
+
 # ---------------------------------------------------------------------------
 # K4 histogram
 # ---------------------------------------------------------------------------

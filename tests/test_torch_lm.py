@@ -145,12 +145,60 @@ def test_flash_plain_matches_jax(causal):
            jflash_ref.attention(*map(jnp.asarray, flat), causal=causal), LAYER_TOL)
 
 
-def test_flash_kernel_refuses_cpu_tensors():
-    x = torch.zeros((2, 64, 128))
+@pytest.mark.parametrize("case, match", [
+    ("cpu", "CUDA"),
+    ("stride not a multiple of 16 bytes", "16 bytes"),
+    ("last dimension strided", "contiguous"),
+])
+def test_flash_kernel_refuses_cpu_tensors(case, match):
+    # The kernel takes (B, S, H, hd) and (B, S, KV, hd) as TMA maps describe
+    # them; anything else raises before a launch is counted.
+    q = torch.zeros((2, 64, 4, 128), dtype=torch.bfloat16)
+    kv = torch.zeros((2, 64, 2, 128), dtype=torch.bfloat16)
+    if case == "stride not a multiple of 16 bytes":
+        q = torch.zeros((2, 64, 4, 132), dtype=torch.bfloat16)[..., :128]  # 264-byte rows
+    elif case == "last dimension strided":
+        q = torch.zeros((2, 64, 4, 256), dtype=torch.bfloat16)[..., ::2]
     before = flash_kernel.LAUNCHES
-    with pytest.raises(ValueError, match="CUDA"):
-        flash_kernel.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match=match):
+        flash_kernel.flash_attention(q, kv, kv)
     assert flash_kernel.LAUNCHES == before
+
+
+def test_flash_tensor_maps_read_the_model_layout_in_place():
+    # The TMA maps of the qwen3-0.6b static prefill's launch (16 q heads
+    # over 8 KV heads of 128), of a batch-1 admission, and of q as a view
+    # of a wider projection: dims (hd, heads, S, B), byte strides of
+    # (heads, S, B), boxes of 64 columns (128 bytes, the swizzle width) by
+    # 128 rows, and each q head's KV head.
+    meta = functools.partial(torch.empty, dtype=torch.bfloat16, device="meta")
+    maps = flash_kernel.tensor_maps(meta((8, 2048, 16, 128)), meta((8, 2048, 8, 128)),
+                                    meta((8, 2048, 8, 128)))
+    assert maps["q"] == ((128, 16, 2048, 8), (256, 16 * 256, 2048 * 16 * 256), (64, 1, 128, 1))
+    assert maps["k"] == maps["v"] == ((128, 8, 2048, 8), (256, 8 * 256, 2048 * 8 * 256),
+                                      (64, 1, 128, 1))
+    assert maps["kv_head"] == tuple(h // 2 for h in range(16))
+    one = flash_kernel.tensor_maps(meta((1, 1024, 16, 128)), meta((1, 1024, 8, 128)),
+                                   meta((1, 1024, 8, 128)))
+    assert one["q"][:2] == ((128, 16, 1024, 1), (256, 16 * 256, 1024 * 16 * 256))
+    wide = meta((8, 2048, 32, 128))[:, :, :16]  # not contiguous: read at its strides
+    assert flash_kernel.tensor_maps(wide, meta((8, 2048, 8, 128)), meta((8, 2048, 8, 128)))[
+        "q"] == ((128, 16, 2048, 8), (256, 32 * 256, 2048 * 32 * 256), (64, 1, 128, 1))
+    with pytest.raises(ValueError, match="H % KV"):
+        flash_kernel.tensor_maps(meta((1, 64, 6, 64)), meta((1, 64, 4, 64)), meta((1, 64, 4, 64)))
+
+
+def test_flash_router_hands_the_model_layout_to_the_kernel(monkeypatch):
+    # On a CUDA tensor ops.py passes q, k, v to the kernel as they are (no
+    # GQA expansion, no flattening copy) and returns the kernel's output.
+    got = []
+    monkeypatch.setattr(flash_ops, "on_cuda", lambda x, what: True)
+    monkeypatch.setattr(flash_kernel, "flash_attention",
+                        lambda q, k, v, causal: got.append((q, k, v, causal)) or q)
+    q, k = torch.zeros((1, 64, 4, 32)), torch.zeros((1, 64, 2, 32))
+    assert flash_ops.flash_attention(q, k, k, causal=False) is q
+    assert len(got) == 1 and got[0][0] is q and got[0][1] is k and got[0][2] is k
+    assert got[0][3] is False
 
 
 def _attention_f32(q, k, v, drop):

@@ -12,11 +12,12 @@ flags (all variants compiled together) and loaded in place of the port's
 kernel library. For the unchanged kernel and for each fault it prints:
 
 - the share of chip_smoke.py's per-element K5 tolerance (FLASH_TOL) that
-  the worst element uses at the static prefill's launch, q, k, v
-  (128, 2048, 128) causal; over 1, chip_smoke.py fails;
+  the worst element uses at the static prefill's launch, q (8, 2048, 16,
+  128) and k, v (8, 2048, 8, 128) causal in the model's layout, against
+  ``ops.reference``; over 1, chip_smoke.py fails;
 - for the bf16 variants, the largest difference between the last-token
   logits of one 2048-token qwen3-0.6b prefill (random weights, the K5
-  launch (16, 2048, 128)) and the plain path's, beside chip_smoke.py's
+  launch (1, 2048, 16, 128)) and the plain path's, beside chip_smoke.py's
   end-to-end limit LM_LOGIT_TOL.
 
 Exits 1 if the K5 check passes a fault or fails the unchanged kernel.
@@ -37,38 +38,40 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (chip_smoke puts src/ on the path)
 
-SHAPE = (128, 2048, 128)
+B, H, KV, S, HD = 8, 16, 8, 2048, 128  # the static prefill's K5 launch
 PROMPT = 2048
 
-
-def _loop_head(elems: str, threads: str) -> str:
-    return ("  for (int k0 = 0; k0 < k_end; k0 += kBK) {\n"
-            "    __syncthreads();  // the previous tile's readers are done\n"
-            f"    for (int e = threadIdx.x; e < kBK * {elems}; e += {threads}) {{\n")
-
-
-def _skip_tile(elems: str, threads: str) -> tuple[str, str]:
-    head = _loop_head(elems, threads)
-    first, rest = head.split("\n", 1)
-    return head, f"{first}\n    if (q0 >= 1024 && k0 == 512) continue;\n{rest}"
+# bf16 body (TMA + wgmma): the rescale of the accumulator, the test that
+# sends a tile through the mask, the mask.
+_RESCALE = ("        o[4 * j + 0] *= alpha[0];\n        o[4 * j + 1] *= alpha[0];\n"
+            "        o[4 * j + 2] *= alpha[1];\n        o[4 * j + 3] *= alpha[1];\n")
+_EDGE = "      if (k0 + kTK > s || (causal && k0 + kTK - 1 > row_lo)) {\n"
+_MASK = "          if (key >= s || (causal && key > row)) sc[i] = kNegInf;\n"
+# f32 body: the head of its k-tile loop.
+_F32_HEAD = ("  for (int k0 = 0; k0 < k_end; k0 += kBK) {\n"
+             "    __syncthreads();  // the previous tile's readers are done\n")
 
 
-_RESCALE = ("      o[j][0] *= alpha[0];\n      o[j][1] *= alpha[0];\n"
-            "      o[j][2] *= alpha[1];\n      o[j][3] *= alpha[1];\n")
-_MASK = "        if (key >= s || (causal && key > row)) val = kNegInf;\n"
+def _masked(cond: str) -> list[tuple[str, str]]:
+    """Edits that send the tiles where ``cond`` holds through the mask and
+    mask the keys where it holds."""
+    return [(_EDGE, _EDGE.replace("if (", f"if ({cond} || ")),
+            (_MASK, _MASK.replace("key > row)", f"key > row) || {cond}"))]
+
 
 # name: (what the fault does, the types it is read in, edits of the source)
 FAULTS = {
     "none": ("the kernel as committed", ("bfloat16", "float32"), []),
-    "skip_tile": ("bf16: rows >= 1024 skip the k tile of keys 512-575", ("bfloat16",),
-                  [_skip_tile("V16", "kMmaThreads")]),
+    "skip_tile": ("bf16: rows >= 1024 skip the k tile of keys 512-639", ("bfloat16",),
+                  _masked("(q0 >= 1024 && k0 == 512)")),
     "no_rescale": ("bf16: the accumulator is not rescaled by alpha after the first two "
                    "k tiles", ("bfloat16",),
-                   [(_RESCALE, "      if (k0 < 2 * kBK) {\n" + _RESCALE + "      }\n")]),
+                   [(_RESCALE, "        if (it < 2) {\n" + _RESCALE + "        }\n")]),
     "one_key": ("bf16: rows >= 1024 drop key 0", ("bfloat16",),
-                [(_MASK, _MASK.replace("key > row)", "key > row) || (key == 0 && row >= 1024)"))]),
+                [(_EDGE, _EDGE.replace("if (", "if (k0 == 0 || ")),
+                 (_MASK, _MASK.replace("key > row)", "key > row) || (key == 0 && row >= 1024)"))]),
     "f32_skip_tile": ("f32: rows >= 1024 skip the k tile of keys 512-575", ("float32",),
-                      [_skip_tile("HD", "kThreads")]),
+                      [(_F32_HEAD, _F32_HEAD + "    if (q0 >= 1024 && k0 == 512) continue;\n")]),
 }
 
 
@@ -124,7 +127,7 @@ def main() -> int:
         return 2
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import kernel as ak, ref as ar
+    from repro_torch.kernels.flash_attention import kernel as ak, ops as ao
     from repro_torch.models import build as build_model
 
     print(subprocess.run(
@@ -132,9 +135,10 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-    inputs = {n: [torch.randn(SHAPE, generator=gen, device="cuda").to(dt) for _ in range(3)]
+    inputs = {n: [torch.randn((B, S, heads, HD), generator=gen, device="cuda").to(dt)
+                  for heads in (H, KV, KV)]
               for n, dt in dtypes.items()}
-    want = {n: ar.attention(*qkv, causal=True) for n, qkv in inputs.items()}
+    want = {n: ao.reference(*qkv, causal=True) for n, qkv in inputs.items()}
 
     cfg = get_config(cs.LM_ARCH)
     model = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(cs.SEED),
