@@ -72,12 +72,20 @@ Phases (any failure exits non-zero):
      phase 8.
   8. Hybrid LM serving at the full width and depth of zamba2-7b (81 Mamba2
      blocks behind 14 sites of one shared attention block, 6.75 B
-     parameters drawn from a seeded generator, bf16 compute). K6
-     ssd_chunks against its plain version on every case of SSD_CASES (the
-     static prefill's (896, 8, 256, 64) with a nonzero h_in, a batch-1
-     admission's, L = 77, L = 1, strong and weak decay, float32), each
-     element within SSD_TOL of its row's scale, and ssd_scan end to end;
-     each row printed with its error, time, plain time and bound. A static
+     parameters drawn from a seeded generator, bf16 compute). K6 against
+     its plain versions on every case of SSD_CASES: the full function
+     ssd_chunks on its (BH, NC, L, 64) layout (the static prefill's (896,
+     8, 256, 64) with a nonzero h_in, a batch-1 admission's, L = 77, L = 1,
+     strong and weak decay, float32), and the states and outputs modes on
+     the model's layout (B and C once per batch row, v and ld as (B, S, H,
+     ...): the static prefill's 8 rows x 8 chunks x 112 heads, a batch-1
+     admission, L = 77, strong and weak decay, float32), each element
+     within SSD_TOL of its row's scale, each mode also against the plain
+     version of float32 copies of its inputs (the states within
+     SSD_TOL["float32"]) and the states mode handed a nonzero h_in
+     bit-equal to it without; then ssd_scan_grouped end to end at (8, 2048,
+     112, 64) within SSD_SCAN_TOL of the plain scan and of the float32
+     scan; each row printed with its error, time, plain time and bound. A static
      batch (8 slots, max_seq 4096, prompts of ragged length up to 2048,
      left-padded to 2048): K6 must launch exactly 162 times (twice per
      Mamba2 block of the one prefill) and K5 never (head_dim 112).
@@ -88,7 +96,8 @@ Phases (any failure exits non-zero):
      plain version: logits of every same-context step within
      HY_LOGIT_ULPS bf16 ulps of the largest |logit|, tokens equal up to
      each request's first plain margin below half of that. Profiler
-     traces of one prefill and one decode step, with K6's share.
+     traces of one prefill and one decode step, with K6's share; the
+     prefill copies no tensor of B H S N elements with a head axis.
   9. A ``kernels`` JSON line (K1-K6), the script's seconds, the card line,
      and the last line ``{"ok": true, "device": {...}}``.
 """
@@ -98,6 +107,7 @@ from __future__ import annotations
 import contextlib
 import gzip
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -200,22 +210,39 @@ SSD_TOL = {"bfloat16": (2.0**-7, 2.0**-5), "float32": (2.0**-13, 2.0**-13)}
 # 2^-9 error in the term that is the scale of a chunk's first rows, so the
 # row share doubles.
 SSD_SCAN_TOL = (2.0**-7, 2.0**-4)
-# K6 cases: (name, BH, NC, L, type, decay), q, k, v ~ N(0, 1), h_in ~ 16 N(0,
-# 1) (a state summed over a chunk of unit k, v). Decays ld = -dt A: "model",
-# dt = softplus(N(0, 1)) and A = exp(A_log), A_log ~ 0.02 N(0, 1), as the
-# model's init draws them (cum near -200 at a chunk's end); "weak", Mamba2's
-# published init (softplus(dt_bias) log-uniform in [1e-3, 0.1], A uniform in
-# [1, 16]), so the incoming state still reaches the late rows; "strong", A =
-# 8, cum below -1000 within the chunk.
+# K6 cases: (name, layout, G, NC, L, Hg, type, decay), q, k, v ~ N(0, 1), h_in
+# ~ 16 N(0, 1) (a state summed over a chunk of unit k, v). "full": the TPU
+# kernel's function on its (BH = G, NC, L, 64) layout, one head per group.
+# "grouped": the states and outputs modes on the model's layout, q and k
+# (G, NC, L, 64) once per group (strided views of one (.., 128) tensor), v
+# (G, NC, L, Hg, 64) and ld (G, NC, L, Hg) as (B, S, H, P) and (B, S, H) cut
+# into chunks, h_in (G, Hg, NC, 64, 64). Decays ld = -dt A, A per head:
+# "model", dt = softplus(N(0, 1)) and A = exp(A_log), A_log ~ 0.02 N(0, 1), as
+# the model's init draws them (cum near -200 at a chunk's end); "weak",
+# Mamba2's published init (softplus(dt_bias) log-uniform in [1e-3, 0.1], A
+# uniform in [1, 16]), so the incoming state still reaches the late rows;
+# "strong", A = 8, cum below -1000 within the chunk.
 SSD_CASES = (
-    ("static prefill", 8 * 112, 8, 256, "bfloat16", "model"),
-    ("batch-1 admission", 112, 2, 256, "bfloat16", "model"),
-    ("ragged L", 112, 1, 77, "bfloat16", "model"),
-    ("L = 1", 112, 1, 1, "bfloat16", "model"),
-    ("strong decay", 112, 2, 256, "bfloat16", "strong"),
-    ("weak decay", 8 * 112, 8, 256, "bfloat16", "weak"),
-    ("float32", 112, 2, 256, "float32", "model"),
+    ("static prefill", "full", 8 * 112, 8, 256, 1, "bfloat16", "model"),
+    ("batch-1 admission", "full", 112, 2, 256, 1, "bfloat16", "model"),
+    ("ragged L", "full", 112, 1, 77, 1, "bfloat16", "model"),
+    ("L = 1", "full", 112, 1, 1, 1, "bfloat16", "model"),
+    ("strong decay", "full", 112, 2, 256, 1, "bfloat16", "strong"),
+    ("weak decay", "full", 8 * 112, 8, 256, 1, "bfloat16", "weak"),
+    ("float32", "full", 112, 2, 256, 1, "float32", "model"),
+    ("static prefill", "grouped", 8, 8, 256, 112, "bfloat16", "model"),
+    ("batch-1 admission", "grouped", 1, 2, 256, 112, "bfloat16", "model"),
+    ("ragged L", "grouped", 1, 1, 77, 112, "bfloat16", "model"),
+    ("strong decay", "grouped", 1, 2, 256, 112, "bfloat16", "strong"),
+    ("weak decay", "grouped", 8, 8, 256, 112, "bfloat16", "weak"),
+    ("float32", "grouped", 1, 2, 256, 112, "float32", "model"),
 )
+# The grouped cases hold each mode to its plain version (SSD_TOL) and, beside
+# that, to the plain version on float32 copies of the same inputs, which
+# rounds nothing: the kernel's states are float32 products of exact bf16
+# operands (dte k split into three bf16 terms), so they stay within
+# SSD_TOL["float32"] of it, the bf16 y within SSD_TOL[type]. And the states
+# mode, handed a nonzero h_in, must return the same bits as without it.
 
 
 def fail(msg: str) -> None:
@@ -264,15 +291,16 @@ def plain_versions():
     from repro_torch.kernels.wpd import kernel as wk, ref as wr
 
     saved = (fk.forest_traverse, gk.gram, wk.wpd_level, hk.class_histogram, ak.flash_attention,
-             sk.ssd_chunks)
+             sk.ssd_chunks, sk.ssd_chunk_states, sk.ssd_chunk_outputs)
     (fk.forest_traverse, gk.gram, wk.wpd_level, hk.class_histogram, ak.flash_attention,
-     sk.ssd_chunks) = (fr.forest_traverse, gr.gram, wr.wpd_level, hr.class_histogram,
-                       ao.reference, sr.ssd_chunks)
+     sk.ssd_chunks, sk.ssd_chunk_states, sk.ssd_chunk_outputs) = (
+        fr.forest_traverse, gr.gram, wr.wpd_level, hr.class_histogram, ao.reference,
+        sr.ssd_chunks, sr.ssd_chunk_states, sr.ssd_chunk_outputs)
     try:
         yield
     finally:
         (fk.forest_traverse, gk.gram, wk.wpd_level, hk.class_histogram,
-         ak.flash_attention, sk.ssd_chunks) = saved
+         ak.flash_attention, sk.ssd_chunks, sk.ssd_chunk_states, sk.ssd_chunk_outputs) = saved
 
 
 def _kernel_modules() -> dict:
@@ -611,19 +639,22 @@ def stage_times(program, traffic) -> dict[str, float]:
     }
 
 
-def device_activity(fn, trace_name: str):
+def device_activity(fn, trace_name: str, copies: list | None = None):
     """Profile one ``fn()`` (after one warm-up call). Returns the host wall
     time in ms (profiler on), the device's busy time in ms (the union of
     its activity intervals) and {name: [device ms, count]} per kernel or
     copy; None for the last two if the profiler saw no device activity.
-    The trace goes to ``chiprun_out/<trace_name>.json.gz``."""
+    The trace goes to ``chiprun_out/<trace_name>.json.gz``. With a list
+    ``copies``, the input shapes of every ``aten::copy_`` are recorded and
+    appended to it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=copies is not None) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -636,6 +667,9 @@ def device_activity(fn, trace_name: str):
         dst.write(src.read())
     raw.unlink()
 
+    if copies is not None:
+        copies.extend(tuple(e.input_shapes[0]) for e in prof.events()
+                      if e.name == "aten::copy_" and e.input_shapes)
     device = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
     if not device:
@@ -1212,12 +1246,16 @@ def compare_paths(label, kernel, plain, tol=LM_LOGIT_TOL, margin=LM_MARGIN
     return diff, n_logits, n_tokens, total
 
 
-def lm_traces(model, tokens, max_seq=LM_MAX_SEQ, label="lm", ours=None) -> None:
+def lm_traces(model, tokens, max_seq=LM_MAX_SEQ, label="lm", ours=None,
+              heads: tuple[int, int] | None = None) -> None:
     """Device busy and idle share, and device time by kernel, of one
     static prefill and of one decode step at the batch of ``tokens``; with
     ``ours`` (a substring of a kernel's name), that kernel's share of each
     trace's device time too, beside the time of the copies (memcpy
-    activities and copy kernels)."""
+    activities and copy kernels). With ``heads`` = (H, N), the prefill's
+    copies of tensors of B H S N elements that have an H or B H axis (B or
+    C expanded per head, or v transposed per head) are counted: there must
+    be none."""
     import torch
 
     _, cache = model.prefill({"tokens": tokens}, max_seq)
@@ -1228,7 +1266,18 @@ def lm_traces(model, tokens, max_seq=LM_MAX_SEQ, label="lm", ours=None) -> None:
         (f"one decode step ({tokens.shape[0]} slots, cache {max_seq})",
          lambda: model.decode_step(cache, step), f"{label}_decode_trace"),
     ):
-        wall_ms, busy_ms, by_name = device_activity(fn, name)
+        shapes = [] if heads is not None and "prefill" in name else None
+        wall_ms, busy_ms, by_name = device_activity(fn, name, shapes)
+        if shapes is not None:
+            b, s = tokens.shape
+            h, n = heads
+            per_head = [sh for sh in shapes if math.prod(sh) == b * s * h * n
+                        and (h in sh or b * h in sh)]
+            print(f"{label} trace {what}: {len(shapes)} aten::copy_ calls, {len(per_head)} of "
+                  f"them of tensors of B H S N = {b * s * h * n} elements with a head axis "
+                  f"{sorted(set(per_head))}")
+            if per_head:
+                fail(f"{label} prefill copies B, C or v per head: {sorted(set(per_head))}")
         if busy_ms is None:
             print(f"{label} trace {what}: {wall_ms:.3f} ms wall; the profiler recorded no "
                   "device activity: busy and idle share not measured")
@@ -1361,10 +1410,8 @@ def lm_phase(gen) -> tuple[dict, int]:
 # ---------------------------------------------------------------------------
 
 def ssd_log_decay(x, decay: str, gen):
-    """ld = -dt A for x (BH, ...) ~ N(0, 1), with a per-row (head) A and dt
-    bias drawn by the law ``decay`` names (see SSD_CASES)."""
-    import math
-
+    """ld = -dt A for x (heads, ...) ~ N(0, 1), with a per-row (head) A and
+    dt bias drawn by the law ``decay`` names (see SSD_CASES)."""
     import torch
     import torch.nn.functional as F
 
@@ -1381,19 +1428,28 @@ def ssd_log_decay(x, decay: str, gen):
     return -F.softplus(x) * torch.exp(a_log)
 
 
-def ssd_inputs(gen, bh: int, nc: int, l: int, dtype: str, decay: str):
-    """q, k, v (bh, nc, l, 64), ld (bh, nc, l) of ``dtype``, h_in (bh, nc,
-    64, 64) float32."""
+def ssd_inputs(gen, case) -> tuple:
+    """One case's inputs (see SSD_CASES): "full", q, k, v (G, NC, L, 64), ld
+    (G, NC, L) of the case's type, h_in (G, NC, 64, 64) float32; "grouped",
+    q, k (G, NC, L, 64), v (G, NC, L, Hg, 64), ld (G, NC, L, Hg), h_in (G, Hg,
+    NC, 64, 64)."""
     import torch
 
+    _, layout, g, nc, l, hg, dtype, decay = case
     dt = getattr(torch, dtype)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=gen.device)
 
-    q, k, v = (randn(bh, nc, l, 64).to(dt) for _ in range(3))
-    ld = ssd_log_decay(randn(bh, nc, l), decay, gen).to(dt)
-    return q, k, v, ld, 16.0 * randn(bh, nc, 64, 64)
+    if layout == "full":
+        q, k, v = (randn(g, nc, l, 64).to(dt) for _ in range(3))
+        ld = ssd_log_decay(randn(g, nc, l), decay, gen).to(dt)
+        return q, k, v, ld, 16.0 * randn(g, nc, 64, 64)
+    qk = randn(g, nc, l, 128).to(dt)
+    v = randn(g, nc, l, hg, 64).to(dt)
+    ld = ssd_log_decay(randn(g * hg, nc, l), decay, gen).reshape(g, hg, nc, l)
+    ld = ld.permute(0, 2, 3, 1).contiguous().to(dt)
+    return qk[..., :64], qk[..., 64:], v, ld, 16.0 * randn(g, hg, nc, 64, 64)
 
 
 def ssd_share(got, want, dtype: str, tol=None) -> float:
@@ -1406,115 +1462,190 @@ def ssd_share(got, want, dtype: str, tol=None) -> float:
     return float(((got - want).abs() / tol).max())
 
 
-def ssd_bound(bh: int, nc: int, l: int, dtype: str) -> tuple[float, str]:
-    """Least time for ssd_chunks on (bh, nc, l, 64): q, k, v, ld, h_in read
-    and y, the state written once, against the causal q k^T and P v
-    (64 L (L + 1) MACs per chunk, on the tensor cores in bf16) and q h_in
-    plus the state (2 L 64^2 MACs, float32), each at its type's peak."""
+def ssd_bound(mode: str, g: int, nc: int, l: int, hg: int, dtype: str) -> tuple[float, str]:
+    """Least time for one K6 launch of ``mode`` ("full", "states" or
+    "outputs") on G groups of Hg heads, NC chunks of L rows, head 64: q and k
+    read once per group (states: k only), v and ld once per head, h_in read
+    (full, outputs), y written (full, outputs) and the state written (full,
+    states) once; against the products: the causal q k^T once per group and
+    chunk (64 L (L + 1) MACs, half of them for L = 1 ... exactly the causal
+    pairs) and P v per head (the same count), on the tensor cores in bf16,
+    and q h_in and the state (L 64^2 MACs each per head). In bf16 the kernel
+    runs each float32 product as three bf16 tensor-core products, and the
+    bound counts them so; in float32 every product runs on the CUDA cores at
+    the float32 rate."""
     es = 2 if dtype == "bfloat16" else 4
-    n = bh * nc
-    n_bytes = n * (4 * l * 64 * es + l * es + 2 * 64 * 64 * 4)
-    tc_flops = n * 2.0 * 64 * l * (l + 1)
-    f32_flops = n * 4.0 * l * 64 * 64
+    chunks, heads = g * nc, g * nc * hg
+    wants_y, wants_state = mode != "states", mode != "outputs"
+    n_bytes = (chunks * l * 64 * es * (2 if wants_y else 1)    # q, k
+               + heads * (l * 64 * es + l * es)                # v, ld
+               + heads * l * 64 * es * wants_y                 # y
+               + heads * 64 * 64 * 4 * (wants_y + wants_state))  # h_in, state
+    causal = 2.0 * 64 * l * (l + 1) / 2                        # flop of one causal product
+    f32_products = heads * 2.0 * l * 64 * 64 * (wants_y + wants_state)
+    tc = (chunks + heads) * causal * wants_y
     if dtype == "bfloat16":
-        t_ops = max(tc_flops / BF16_FLOP_PER_S, f32_flops / FP32_FLOP_PER_S) * 1e3
+        t_ops = (tc + 3 * f32_products) / BF16_FLOP_PER_S * 1e3
     else:
-        t_ops = (tc_flops + f32_flops) / FP32_FLOP_PER_S * 1e3
+        t_ops = (tc + f32_products) / FP32_FLOP_PER_S * 1e3
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def ssd_case_inputs(gen) -> list:
-    """[(case, inputs, the plain version's (y, state))] for SSD_CASES."""
+    """[(case, inputs, the plain versions' outputs)] for SSD_CASES: "full",
+    (y, state); "grouped", {"states", "outputs": the plain version's output;
+    "states exact", "outputs exact": on float32 copies of the inputs}."""
+    import torch
+
     from repro_torch.kernels.ssd import ref as sr
 
     out = []
     for case in SSD_CASES:
-        inputs = ssd_inputs(gen, *case[1:])
-        out.append((case, inputs, sr.ssd_chunks(*inputs)))
+        inputs = ssd_inputs(gen, case)
+        if case[1] == "full":
+            out.append((case, inputs, sr.ssd_chunks(*inputs)))
+            continue
+        q, k, v, ld, h_in = inputs
+        f32 = [t.to(torch.float32) for t in (q, k, v, ld)]
+        out.append((case, inputs, {
+            "states": sr.ssd_chunk_states(k, v, ld),
+            "outputs": sr.ssd_chunk_outputs(q, k, v, ld, h_in),
+            "states exact": sr.ssd_chunk_states(*f32[1:]),
+            "outputs exact": sr.ssd_chunk_outputs(*f32, h_in),
+        }))
     return out
 
 
-def ssd_shares(case, inputs, want) -> tuple[float, float, float]:
-    """K6 on one case's inputs: (share of y, share of the state, max abs
-    error of either)."""
+def ssd_shares(case, inputs, want) -> tuple[dict[str, float], float]:
+    """K6 on one case's inputs: ({check: the largest share of its tolerance
+    an element uses}, the largest abs error against the plain version).
+    "full": y and the state against the plain version (SSD_TOL). "grouped":
+    each mode against its plain version (SSD_TOL[type]) and against the
+    plain version on float32 copies (states SSD_TOL["float32"], outputs
+    SSD_TOL[type]); "states ignore h_in" is 0 when the states mode handed a
+    nonzero h_in returns the same bits, else inf."""
     import torch
 
     from repro_torch.kernels.ssd import kernel as sk
 
-    got = sk.ssd_chunks(*inputs)
+    dtype = case[6]
+    if case[1] == "full":
+        got = sk.ssd_chunks(*inputs)
+        torch.cuda.synchronize()
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        return {"y": ssd_share(got[0], want[0], dtype),
+                "state": ssd_share(got[1], want[1], dtype)}, err
+    q, k, v, ld, h_in = inputs
+    states = sk.ssd_chunk_states(k, v, ld)
+    handed = torch.empty_like(states)
+    sk.launch(sk.STATES, None, k, v, ld, h_in, None, handed)
+    y = sk.ssd_chunk_outputs(q, k, v, ld, h_in)
     torch.cuda.synchronize()
-    dtype = case[4]
-    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
-    return ssd_share(got[0], want[0], dtype), ssd_share(got[1], want[1], dtype), err
+    err = max(float((states - want["states"]).abs().max()),
+              float((y.float() - want["outputs"].float()).abs().max()))
+    return {"states": ssd_share(states, want["states"], dtype),
+            "states exact": ssd_share(states, want["states exact"], "float32"),
+            "states ignore h_in": 0.0 if torch.equal(states, handed) else float("inf"),
+            "outputs": ssd_share(y, want["outputs"], dtype),
+            "outputs exact": ssd_share(y, want["outputs exact"], dtype)}, err
+
+
+def ssd_scan_inputs(gen, decay: str) -> tuple:
+    """ssd_scan_grouped's inputs at the static prefill's (8, 2048, 112, 64):
+    q = C and k = B (8, 2048, 64) as views of one (8, 2048, 128) tensor, v
+    (8, 2048, 112, 64), ld (8, 2048, 112), bf16."""
+    import torch
+
+    b, s, h = 8, 2048, 112
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=gen.device)
+
+    qk = randn(b, s, 128).to(torch.bfloat16)
+    ld = ssd_log_decay(randn(b * h, s), decay, gen).reshape(b, h, s).transpose(1, 2)
+    return (qk[..., :64], qk[..., 64:], randn(b, s, h, 64).to(torch.bfloat16),
+            ld.contiguous().to(torch.bfloat16))
 
 
 def check_ssd(gen) -> dict[str, dict]:
     """K6 against its plain version on every case of SSD_CASES, element by
-    element within SSD_TOL, then ssd_scan end to end (y and the final
-    state, two K6 launches around the inter-chunk loop) at the static
-    prefill's (896, 2048, 64) against ssd_scan through the plain version,
-    within SSD_SCAN_TOL; the row also gives each path's share of that
-    tolerance against the plain scan of float32 copies of the inputs."""
+    element within SSD_TOL (the grouped cases also against the plain version
+    on float32 copies, and the states mode handed a nonzero h_in), then
+    ssd_scan_grouped end to end (y and the final state: the states launch,
+    the inter-chunk loop, the outputs launch) at the static prefill's (8,
+    2048, 112, 64) against ssd_scan_grouped through the plain versions, and
+    against the plain scan of float32 copies of the inputs, each within
+    SSD_SCAN_TOL."""
     import torch
 
     from repro_torch.kernels.ssd import kernel as sk, ops as so, ref as sr
 
     rows = {}
     for case, inputs, want in ssd_case_inputs(gen):
-        name, bh, nc, l, dtype, decay = case
-        share_y, share_s, err = ssd_shares(case, inputs, want)
+        name, layout, g, nc, l, hg, dtype, decay = case
+        shares, err = ssd_shares(case, inputs, want)
         rel, row = SSD_TOL[dtype]
-        label = f"ssd_chunks/{name} ({bh}, {nc}, {l}, 64) {dtype} {decay} decay"
-        if not max(share_y, share_s) <= 1.0:
-            fail(f"{label}: K6 disagrees with its plain version: an element of y uses "
-                 f"{share_y}, of the state {share_s}, of its tolerance {rel:.3g} |plain| + "
-                 f"{row:.3g} max|plain row|")
-        cum_min = float(torch.cumsum(inputs[3].float(), -1).min())
+        text = ", ".join(f"{c} {s:.4f}" for c, s in shares.items())
+        if not max(shares.values()) <= 1.0:
+            fail(f"K6 {layout} {name} ({g}, {nc}, {l}, {hg}) {dtype}: an element exceeds its "
+                 f"tolerance; worst shares by check: {text}")
+        cum_min = float(torch.cumsum(inputs[3].float(), 2).min())
         if decay == "strong" and not cum_min < -1000:
-            fail(f"{label}: cum reaches only {cum_min}, not below -1000")
-        b_ms, b_by = ssd_bound(bh, nc, l, dtype)
-        reps = {} if bh * nc <= 1024 else dict(launches=5, reps=5)
-        rows[label] = dict(
-            shape=f"q, k, v ({bh}, {nc}, {l}, 64), h_in nonzero, min cum {cum_min:.1f}",
-            max_abs_err=err, tol=None,
-            note=f"tol per element {rel:.3g} |plain| + {row:.3g} max|plain row|, the worst "
-                 f"element of y uses {share_y:.4f} of it, of the state {share_s:.4f}",
-            ms=time_ms(lambda: sk.ssd_chunks(*inputs)),
-            plain_ms=time_ms(lambda: sr.ssd_chunks(*inputs), **reps),
-            library_ms=None, bound_ms=b_ms, bound_by=b_by,
-        )
+            fail(f"K6 {layout} {name}: cum reaches only {cum_min}, not below -1000")
+        reps = {} if g * nc * hg <= 1024 else dict(launches=5, reps=5)
+        q, k, v, ld, h_in = inputs
+        if layout == "full":
+            calls = {"ssd_chunks": (lambda: sk.ssd_chunks(*inputs),
+                                    lambda: sr.ssd_chunks(*inputs), "full")}
+            dims = f"({g}, {nc}, {l}, 64)"
+            shape = f"q, k, v {dims}, h_in nonzero"
+        else:
+            calls = {"ssd_chunk_states": (lambda: sk.ssd_chunk_states(k, v, ld),
+                                          lambda: sr.ssd_chunk_states(k, v, ld), "states"),
+                     "ssd_chunk_outputs": (lambda: sk.ssd_chunk_outputs(q, k, v, ld, h_in),
+                                           lambda: sr.ssd_chunk_outputs(q, k, v, ld, h_in),
+                                           "outputs")}
+            dims = f"({g}, {nc}, {l}, {hg}, 64)"
+            shape = f"q, k ({g}, {nc}, {l}, 64) strided, v {dims}, h_in nonzero"
+        for fn_name, (kernel_fn, plain_fn, mode) in calls.items():
+            b_ms, b_by = ssd_bound(mode, g, nc, l, hg, dtype)
+            rows[f"{fn_name}/{name} {dims} {dtype} {decay} decay"] = dict(
+                shape=f"{shape}, min cum {cum_min:.1f}", max_abs_err=err, tol=None,
+                note=f"tol per element {rel:.3g} |plain| + {row:.3g} max|plain row|; the "
+                     f"worst element uses, by check, {text}",
+                ms=time_ms(kernel_fn), plain_ms=time_ms(plain_fn, **reps),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            )
+    del want, inputs
     for decay in ("model", "weak"):
-        q, k, v, ld, _ = ssd_inputs(gen, 8 * 112, 1, 2048, "bfloat16", decay)
-        args = (q[:, 0], k[:, 0], v[:, 0], ld[:, 0])
-        got = so.ssd_scan(*args)
+        args = ssd_scan_inputs(gen, decay)
+        got = so.ssd_scan_grouped(*args)
         with plain_versions():
-            want = so.ssd_scan(*args)
-            plain_ms = time_ms(lambda: so.ssd_scan(*args), launches=5, reps=5)
-            exact = so.ssd_scan(*(t.float() for t in args))
-        share_y = ssd_share(got[0], want[0], "bfloat16", SSD_SCAN_TOL)
-        share_s = ssd_share(got[1], want[1], "bfloat16", SSD_SCAN_TOL)
-        vs_f32 = {path: max(ssd_share(r[0], exact[0], "bfloat16", SSD_SCAN_TOL),
-                            ssd_share(r[1], exact[1], "bfloat16", SSD_SCAN_TOL))
-                  for path, r in (("kernel", got), ("plain", want))}
+            want = so.ssd_scan_grouped(*args)
+            plain_ms = time_ms(lambda: so.ssd_scan_grouped(*args), launches=5, reps=5)
+            exact = so.ssd_scan_grouped(*(t.float() for t in args))
+        shares = {f"{path} {what}": ssd_share(r[i], ref[i], "bfloat16", SSD_SCAN_TOL)
+                  for path, r, ref in (("against plain", got, want), ("kernel exact", got, exact),
+                                       ("plain exact", want, exact))
+                  for i, what in ((0, "y"), (1, "state"))}
         err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
-        label = f"ssd_scan/static prefill (896, 2048, 64) bfloat16 {decay} decay"
+        label = f"ssd_scan/static prefill (8, 2048, 112, 64) bfloat16 {decay} decay"
         rel, row = SSD_SCAN_TOL
-        if not max(share_y, share_s) <= 1.0:
-            fail(f"{label}: ssd_scan through K6 disagrees with its plain version: y uses "
-                 f"{share_y}, the final state {share_s}, of its tolerance")
-        b_ms, b_by = ssd_bound(8 * 112, 8, 256, "bfloat16")
+        text = ", ".join(f"{c} {s:.4f}" for c, s in shares.items())
+        if not max(s for c, s in shares.items() if not c.startswith("plain")) <= 1.0:
+            fail(f"{label}: the scan through K6 exceeds SSD_SCAN_TOL against the plain scan or "
+                 f"the float32 scan: {text}")
+        b_ms = sum(ssd_bound(m, 8, 8, 256, 112, "bfloat16")[0] for m in ("states", "outputs"))
         rows[label] = dict(
-            shape="two K6 launches at (896, 8, 256, 64) and the chunk loop",
+            shape="K6 states and outputs at (8, 8, 256, 112, 64) and the chunk loop",
             max_abs_err=err, tol=None,
-            note=f"tol per element {rel:.3g} |plain| + {row:.3g} max|plain row|, the worst "
-                 f"element of y uses {share_y:.4f} of it, of the final state {share_s:.4f}; "
-                 f"against the float32 scan the kernel path uses {vs_f32['kernel']:.4f}, the "
-                 f"plain path {vs_f32['plain']:.4f}; bound: the two launches'",
-            ms=time_ms(lambda: so.ssd_scan(*args), launches=5, reps=5),
-            plain_ms=plain_ms, library_ms=None, bound_ms=2 * b_ms, bound_by=b_by,
+            note=f"tol per element {rel:.3g} |plain| + {row:.3g} max|plain row|; the worst "
+                 f"element uses, by path and output, {text}; bound: the two launches'",
+            ms=time_ms(lambda: so.ssd_scan_grouped(*args), launches=5, reps=5),
+            plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by="bytes",
         )
-        del q, k, v, ld, args, got, want, exact
+        del args, got, want, exact
     print_kernel_rows(rows)
     torch.cuda.empty_cache()
     return rows
@@ -1523,8 +1654,6 @@ def check_ssd(gen) -> dict[str, dict]:
 def hybrid_phase(gen) -> tuple[dict, int]:
     """Phase 8. Returns the K6 rows and K6's launches in the two engine
     runs through the kernels."""
-    import math
-
     import torch
 
     from repro_torch.configs import get_config
@@ -1642,7 +1771,7 @@ def hybrid_phase(gen) -> tuple[dict, int]:
     del kernel, plain, calls, p_calls
     lm_traces(model, torch.from_numpy(np.stack([
         np.pad(p, (max(HY_STATIC_LENS) - len(p), 0)) for p in static_prompts])).to("cuda"),
-        HY_MAX_SEQ, "hybrid", "ssd_chunk")
+        HY_MAX_SEQ, "hybrid", "ssd_chunk", heads=(cfg.n_ssm_heads, cfg.ssm_state))
     print(f"hybrid peak memory: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated "
           f"at most in the phase")
     del model

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 All sources under ``repro_torch/csrc`` are compiled for ``sm_90a`` (one
-``nvcc -c`` per source, all started together), linked into ONE shared
+``nvcc -c`` per ``.cu`` source, all started together; ``.cuh`` headers are
+included by them), linked into ONE shared
 library with a plain C interface, and loaded with ``ctypes``. The
 library lives under ``build/repro_torch/`` at the root of the checkout,
 named by a hash of the sources and flags, so an edited source builds
@@ -36,9 +37,13 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"librepro_torch_{digest.hexdigest()[:16]}.so"

@@ -1,11 +1,15 @@
 """K6 router and the two-pass SSD schedule (twin of the JAX package's
 ``kernels/ssd/ops.py``): full sequence in, the per-chunk work in K6 on a
-CUDA tensor (the plain version on a CPU tensor), the inter-chunk
+CUDA tensor (the plain versions on a CPU tensor), the inter-chunk
 recurrence a short torch loop over the chunks.
 
-  1. chunk summaries with h_in = 0 -> local states;
-  2. the (Dk, Dv) recurrence across chunks -> the true h_in of each chunk;
-  3. the chunk step again with the true h_in -> exact y.
+  1. the chunk states with no incoming state (K6's states mode);
+  2. the (Dk, Dv) recurrence across chunks -> the true h_in of each chunk
+     and the final state;
+  3. the outputs given the true h_in (K6's outputs mode) -> exact y.
+
+``ssd_scan_grouped`` takes the model's layout, one B/C row per batch row
+shared by its heads; ``ssd_scan`` the JAX package's (BH, S, D) layout.
 """
 
 from __future__ import annotations
@@ -17,31 +21,39 @@ from repro_torch.kernels.ssd import kernel as _kernel
 from repro_torch.kernels.ssd import ref as _ref
 
 
-def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor, *,
-             chunk: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
-    """q, k: (BH, S, Dk); v: (BH, S, Dv); ld: (BH, S) log-decay <= 0.
-    Returns (y (BH, S, Dv), final_state (BH, Dk, Dv) float32)."""
-    bh, s, dk = q.shape
-    dv = v.shape[-1]
+def ssd_scan_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor, *,
+                     chunk: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
+    """q = C, k = B: (B, S, N), each row's shared by its heads; v: (B, S, H,
+    P); ld: (B, S, H) log-decay <= 0, all of one type. Returns (y (B, S, H,
+    P) in that type, final_state (B, H, N, P) float32)."""
+    b, s, n = q.shape
+    h, p = v.shape[2:]
     chunk = min(chunk, s)
     assert s % chunk == 0, (s, chunk)
     nc = s // chunk
+    qc, kc = q.reshape(b, nc, chunk, n), k.reshape(b, nc, chunk, n)
+    vc, ldc = v.reshape(b, nc, chunk, h, p), ld.reshape(b, nc, chunk, h)
+    run = _kernel if on_cuda(q, "ssd_scan") else _ref
 
-    def split(t):
-        return t.reshape(bh, nc, chunk, *t.shape[2:]).contiguous()
+    local = run.ssd_chunk_states(kc, vc, ldc)               # pass 1: (B, H, NC, N, P)
+    # Each chunk's decay, summed along contiguous rows (so that any grouping
+    # of the heads sums each row in the same order).
+    decay = torch.exp(ldc.movedim(3, 1).to(torch.float32).contiguous().sum(-1))  # (B, H, NC)
+    decay = decay[..., None, None]
+    # h_in[:, :, c] is the state entering chunk c; one fused update a chunk.
+    h_in = torch.empty_like(local)
+    h_in[:, :, 0] = 0.0
+    for c in range(nc - 1):
+        torch.addcmul(local[:, :, c], h_in[:, :, c], decay[:, :, c], out=h_in[:, :, c + 1])
+    state = torch.addcmul(local[:, :, -1], h_in[:, :, -1], decay[:, :, -1])
+    y = run.ssd_chunk_outputs(qc, kc, vc, ldc, h_in)        # pass 2: exact outputs
+    return y.reshape(b, s, h, p), state
 
-    qc, kc, vc, ldc = split(q), split(k), split(v), split(ld)
-    run_chunks = _kernel.ssd_chunks if on_cuda(q, "ssd_scan") else _ref.ssd_chunks
 
-    zeros = torch.zeros((bh, nc, dk, dv), dtype=torch.float32, device=q.device)
-    _, local_states = run_chunks(qc, kc, vc, ldc, zeros)   # pass 1: summaries
-    total = torch.sum(ldc.to(torch.float32), dim=2)        # (BH, NC)
-    h = torch.zeros((bh, dk, dv), dtype=torch.float32, device=q.device)
-    h_in = torch.empty_like(zeros)
-    for c in range(nc):
-        h_in[:, c] = h                                      # the state entering chunk c
-        # local_states already include exp(total) * h_in with h_in = 0
-        h = h * torch.exp(total[:, c])[:, None, None] + local_states[:, c]
-    y, states_out = run_chunks(qc, kc, vc, ldc, h_in)       # pass 2: exact outputs
-    # contiguous: a prefill keeps every block's final state, not its states_out
-    return y.reshape(bh, s, dv), states_out[:, -1].contiguous()
+def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor, *,
+             chunk: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
+    """q, k: (BH, S, Dk); v: (BH, S, Dv); ld: (BH, S) log-decay <= 0.
+    Returns (y (BH, S, Dv), final_state (BH, Dk, Dv) float32): the grouped
+    scan with one head per group."""
+    y, state = ssd_scan_grouped(q, k, v[:, :, None], ld[:, :, None], chunk=chunk)
+    return y[:, :, 0], state[:, 0]

@@ -83,9 +83,10 @@ def _use_ssd_kernel(x: torch.Tensor, initial_state, s: int, chunk: int) -> bool:
 def _ssm_inner(cfg: ArchConfig, p: Params, x, bmat, cmat, dt_raw, *, initial_state=None):
     """Shared by full-seq; returns (y (B,S,d_ssm), final_state).
 
-    Through the gate the chunk step runs as K6 with the log-decay rounded
-    to the activations' type (the reference's cast); otherwise the plain
-    chunked core with float32 log-decay."""
+    Through the gate the chunk step runs as K6 on the model's layout (B and
+    C once per batch row, v and y as (B, S, H, P)) with the log-decay
+    rounded to the activations' type (the reference's cast); otherwise the
+    plain chunked core with float32 log-decay."""
     d_ssm, h, n, _ = _dims(cfg)
     b_, s, _ = x.shape
     pdim = cfg.ssm_head_dim
@@ -93,22 +94,16 @@ def _ssm_inner(cfg: ArchConfig, p: Params, x, bmat, cmat, dt_raw, *, initial_sta
     dt = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"])         # (B,S,H)
     a = -torch.exp(p["A_log"].to(torch.float32))                     # (H,)
     log_decay = dt * a                                               # (B,S,H)
-    k = bmat[:, :, None, :].expand(b_, s, h, n).to(x.dtype)
-    q = cmat[:, :, None, :].expand(b_, s, h, n).to(x.dtype)
     v = xh * dt[..., None].to(x.dtype)
     chunk = min(cfg.ssm_chunk, s)
     if _use_ssd_kernel(x, initial_state, s, chunk):
         from repro_torch.kernels.ssd import ops as ssd_ops
 
-        def bh(t):  # (B,S,H,D) -> (B*H,S,D)
-            return t.transpose(1, 2).reshape(b_ * h, s, t.shape[-1])
-
-        y, state = ssd_ops.ssd_scan(
-            bh(q), bh(k), bh(v),
-            log_decay.transpose(1, 2).reshape(b_ * h, s).to(q.dtype), chunk=chunk)
-        y = y.reshape(b_, h, s, pdim).transpose(1, 2)
-        state = state.reshape(b_, h, n, pdim)
+        y, state = ssd_ops.ssd_scan_grouped(cmat.to(x.dtype), bmat.to(x.dtype), v,
+                                            log_decay.to(x.dtype), chunk=chunk)
     else:
+        k = bmat[:, :, None, :].expand(b_, s, h, n).to(x.dtype)
+        q = cmat[:, :, None, :].expand(b_, s, h, n).to(x.dtype)
         y, state = scan_core.chunked_linear_attention(
             q, k, v, log_decay, chunk=chunk, initial_state=initial_state)
     y = y + xh * p["D"].to(x.dtype)[None, None, :, None]

@@ -197,6 +197,109 @@ def test_ssd_kernel_refuses_cpu_tensors():
     assert ssd_kernel.LAUNCHES == before
 
 
+def _grouped_inputs(rng, g, nc, l, hg, dk, dv):
+    """K6's grouped layout: q, k (G, NC, L, Dk), v (G, NC, L, Hg, Dv), ld (G,
+    NC, L, Hg), h_in (G, Hg, NC, Dk, Dv), drawn as _ssd_inputs draws them."""
+    q, k = (0.5 * rng.normal(size=(g, nc, l, dk)) for _ in range(2))
+    v = 0.5 * rng.normal(size=(g, nc, l, hg, dv))
+    ld = -np.logaddexp(rng.normal(size=(g, nc, l, hg)), 0.0)
+    h_in = rng.normal(size=(g, hg, nc, dk, dv))
+    return [a.astype(np.float32) for a in (q, k, v, ld, h_in)]
+
+
+def _expanded(q, k, v, ld, h_in):
+    """The grouped inputs per head, (G * Hg, NC, L, ...) in (group, head)
+    order, as the JAX kernel and ref take them."""
+    g, nc, l, hg, dv = v.shape
+    dk = q.shape[-1]
+
+    def heads(a):  # q, k broadcast over the heads
+        return np.broadcast_to(a[:, None], (g, hg, nc, l, dk)).reshape(g * hg, nc, l, dk)
+
+    return (heads(q), heads(k), v.transpose(0, 3, 1, 2, 4).reshape(g * hg, nc, l, dv),
+            ld.transpose(0, 3, 1, 2).reshape(g * hg, nc, l), h_in.reshape(g * hg, nc, dk, dv))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunk_modes_plain_match_jax(dtype):
+    """K6's states and outputs plain versions on the grouped layout against
+    JAX ``ref.ssd_chunk`` and the Pallas kernel in interpret mode on the
+    inputs expanded per head (the states with h_in = 0)."""
+    g, nc, l, hg, dk, dv = 2, 2, 32, 3, 16, 32
+    q, k, v, ld, h_in = _grouped_inputs(np.random.default_rng(8), g, nc, l, hg, dk, dv)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    states = ssd_ref.ssd_chunk_states(*(_t(a, tdt) for a in (k, v, ld)))
+    y = ssd_ref.ssd_chunk_outputs(*(_t(a, tdt) for a in (q, k, v, ld)), _t(h_in))
+    assert states.dtype == torch.float32 and states.shape == (g, hg, nc, dk, dv)
+    assert y.dtype == tdt and y.shape == (g, nc, l, hg, dv) and y.is_contiguous()
+    eq, ek, ev, eld, eh = _expanded(q, k, v, ld, h_in)
+    zeros = np.zeros_like(eh)
+    flat = [a.reshape(g * hg * nc, *a.shape[2:]) for a in (eq, ek, ev, eld, eh, zeros)]
+    ref = jax.jit(jssd_ref.ssd_chunk)
+    want_y, _ = ref(*(_j(a, jdt) for a in flat[:4]), _j(flat[4]))
+    _, want_state = ref(*(_j(a, jdt) for a in flat[:4]), _j(flat[5]))
+    pallas = [jssd_kernel.ssd_chunks(*(_j(a, jdt) for a in (eq, ek, ev, eld)), _j(hh),
+                                     interpret=True) for hh in (eh, zeros)]
+    for want in (want_state, pallas[1][1]):
+        _close(states, np.asarray(want, np.float32).reshape(g, hg, nc, dk, dv), tol)
+    for want in (want_y, pallas[0][0]):
+        want = np.asarray(want.astype(jnp.float32)).reshape(g, hg, nc, l, dv)
+        _close(y, want.transpose(0, 2, 3, 1, 4), tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_grouped_matches_scan(dtype):
+    """The grouped scan equals ``ssd_scan`` on the inputs expanded per head
+    (the same plain chunk steps in the same order), and agrees with JAX
+    ``ssd_scan`` on them (through the Pallas kernel in interpret mode and
+    through its ref); it launches nothing for CPU tensors."""
+    b, s, h, n, p, chunk = 2, 64, 3, 16, 32, 16
+    rng = np.random.default_rng(9)
+    q, k = (0.5 * rng.normal(size=(b, s, n)).astype(np.float32) for _ in range(2))
+    v = 0.5 * rng.normal(size=(b, s, h, p)).astype(np.float32)
+    ld = -np.logaddexp(rng.normal(size=(b, s, h)), 0.0).astype(np.float32)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    before = ssd_kernel.LAUNCHES
+    y, state = ssd_ops.ssd_scan_grouped(*(_t(a, tdt) for a in (q, k, v, ld)), chunk=chunk)
+    assert ssd_kernel.LAUNCHES == before
+    assert y.shape == (b, s, h, p) and y.dtype == tdt
+    assert state.shape == (b, h, n, p) and state.dtype == torch.float32
+    expand = [np.broadcast_to(a[:, :, None], (b, s, h, n)).transpose(0, 2, 1, 3)
+              .reshape(b * h, s, n) for a in (q, k)]
+    expand += [v.transpose(0, 2, 1, 3).reshape(b * h, s, p),
+               ld.transpose(0, 2, 1).reshape(b * h, s)]
+    ye, state_e = ssd_ops.ssd_scan(*(_t(a, tdt) for a in expand), chunk=chunk)
+    assert torch.equal(y.transpose(1, 2).reshape(b * h, s, p), ye)
+    assert torch.equal(state.reshape(b * h, n, p), state_e)
+    for use_pallas in (True, False):
+        jy, jstate = jssd_ops.ssd_scan(*(_j(a, jdt) for a in expand), chunk=chunk,
+                                       use_pallas=use_pallas)
+        _close(ye, jy, tol)
+        _close(state_e, jstate, tol)
+
+
+def test_ssd_mode_kernels_refuse_cpu_tensors():
+    g, nc, l, hg, d = 2, 1, 16, 3, 64
+    qk = torch.zeros((g, nc, l, d))
+    v = torch.zeros((g, nc, l, hg, d))
+    ld = torch.zeros((g, nc, l, hg))
+    h_in = torch.zeros((g, hg, nc, d, d))
+    before = ssd_kernel.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_kernel.ssd_chunk_states(qk, v, ld)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_kernel.ssd_chunk_outputs(qk, qk, v, ld, h_in)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_kernel.launch(ssd_kernel.STATES, None, qk, v, ld, h_in, None, h_in)
+    assert ssd_kernel.LAUNCHES == before
+    # the router sends the same CPU tensors to the plain versions
+    y, state = ssd_ops.ssd_scan_grouped(qk[:, 0], qk[:, 0], v[:, 0], ld[:, 0])
+    assert y.shape == (g, l, hg, d) and state.shape == (g, hg, d, d)
+    assert ssd_kernel.LAUNCHES == before
+
+
 # ---------------------------------------------------------------------------
 # scan_core and the Mamba2 block
 # ---------------------------------------------------------------------------
@@ -249,19 +352,27 @@ def test_mamba2_apply_and_decode_match_jax(pair):
 
 def test_ssd_kernel_route_matches_scan_core(pair, monkeypatch):
     """K6's route through ``_ssm_inner`` (forced on for a CPU tensor, so
-    ``ssd_scan`` runs K6's plain version: log-decay rounded to the
-    activations' type, a no-op in float32) against the scan_core route, at
-    S = 64 over chunks of 32."""
+    ``ssd_scan_grouped`` runs K6's plain versions on the model's layout:
+    log-decay rounded to the activations' type, a no-op in float32) against
+    the scan_core route, at S = 64 over chunks of 32."""
     cfg = pair.cfg
     _, p = pair.mamba_params(0, 1)
     u = _t(np.random.default_rng(4).normal(size=(2, 64, cfg.d_model)).astype(np.float32))
     want, want_cache = ssm.mamba2_apply(cfg, p, u, return_cache=True)
     routed = []
-    scan = ssd_ops.ssd_scan
+    scan = ssd_ops.ssd_scan_grouped
     monkeypatch.setattr(ssm, "_use_ssd_kernel", lambda *a: True)
-    monkeypatch.setattr(ssd_ops, "ssd_scan", lambda *a, **kw: routed.append(kw) or scan(*a, **kw))
+
+    def grouped(q, k, v, ld, **kw):
+        # B and C once per batch row, v and ld in the model's layout
+        routed.append((q.shape, k.shape, v.shape, ld.shape, kw))
+        return scan(q, k, v, ld, **kw)
+
+    monkeypatch.setattr(ssd_ops, "ssd_scan_grouped", grouped)
     got, got_cache = ssm.mamba2_apply(cfg, p, u, return_cache=True)
-    assert routed == [{"chunk": cfg.ssm_chunk}]
+    n, h, pd = cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
+    assert routed == [((2, 64, n), (2, 64, n), (2, 64, h, pd), (2, 64, h),
+                       {"chunk": cfg.ssm_chunk})]
     _close(got, want, LAYER_TOL)
     _close(got_cache["state"], want_cache["state"], LAYER_TOL)
     assert torch.equal(got_cache["conv"], want_cache["conv"])
@@ -461,6 +572,31 @@ def test_ssd_tolerance_separates_rounding_from_faults(fault):
     assert (share > 1.0) == (fault is not None), share
 
 
+@pytest.mark.parametrize("fault", [None, "dropped_split"])
+def test_ssd_state_tolerance_separates_rounding_from_a_dropped_split(fault):
+    # chip_smoke.py holds K6's states (float32 products of bf16 inputs, dte k
+    # split into three bf16 terms) to the plain version on float32 copies
+    # within SSD_TOL["float32"]; the exact split passes, one without its
+    # middle term (a 2^-9 relative error in dte k) lands far over it.
+    chip_smoke = importlib.import_module("chip_smoke")
+    rng = np.random.default_rng(13)
+    g, nc, l, hg = 1, 2, 256, 4
+    k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(torch.bfloat16)
+            for shape in ((g, nc, l, 64), (g, nc, l, hg, 64)))
+    ld = torch.from_numpy(-np.logaddexp(rng.normal(size=(g, nc, l, hg)), 0.0)
+                          .astype(np.float32)).to(torch.bfloat16)
+    want = ssd_ref.ssd_chunk_states(k.float(), v.float(), ld.float())
+    cum = torch.cumsum(ld.float(), 2)                                  # (G, NC, L, Hg)
+    kd = k.float()[..., None, :] * torch.exp(cum[:, :, -1:] - cum)[..., None]
+    hi = kd.to(torch.bfloat16).float()
+    mid = (kd - hi).to(torch.bfloat16).float()
+    lo = (kd - hi - mid).to(torch.bfloat16).float()
+    terms = hi + lo if fault == "dropped_split" else hi + mid + lo
+    got = torch.einsum("gclhd,gclhv->ghcdv", terms, v.float())
+    share = chip_smoke.ssd_share(got, want, "float32")
+    assert (share > 1.0) == (fault is not None), share
+
+
 def test_ssd_faults_edit_the_kernel_source():
     # tools/ssd_faults.py plants each fault by a text edit of the K6 source;
     # every edit must find its text there exactly once.
@@ -469,8 +605,25 @@ def test_ssd_faults_edit_the_kernel_source():
     spec.loader.exec_module(faults)
     source = (ROOT / "src" / "repro_torch" / "csrc" / "ssd_chunks.cu").read_text()
     assert set(faults.FAULTS) >= {"none", "no_hin_late", "mask_off_by_one", "no_state_hin",
-                                  "one_key", "f32_mask_off_by_one"}
+                                  "one_key", "f32_mask_off_by_one", "wrong_group",
+                                  "dropped_split", "states_read_hin", "below_diag_decay"}
     for name, (_, _, edits) in faults.FAULTS.items():
         assert bool(edits) == (name != "none")
         for old, _ in edits:
             assert source.count(old) == 1, name
+
+
+def test_ssd_ablate_edits_the_kernel_source():
+    # tools/ssd_ablate.py times K6 with one part of its work removed per
+    # variant, by text edits of its source; each edit must find its text
+    # exactly once.
+    spec = importlib.util.spec_from_file_location("ssd_ablate", ROOT / "tools" / "ssd_ablate.py")
+    ablate = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ablate)
+    source = (ROOT / "src" / "repro_torch" / "csrc" / "ssd_chunks.cu").read_text()
+    assert {"base", "no_y_store", "no_pv", "states_no_products"} <= set(ablate.VARIANTS)
+    for name, (_, edits) in ablate.VARIANTS.items():
+        assert bool(edits) == (name != "base")
+        for old, _ in edits:
+            assert source.count(old) == 1, name
+

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Time K5 and K3 and one qwen3-0.6b static prefill in the port of a given
-checkout, so that two checkouts can be compared in one call on one card.
+"""Time kernels and one static prefill in the port of a given checkout, so
+that two checkouts can be compared in one call on one card.
 
 Run from the root of a checkout, on one CUDA card:
 
     python3 tools/ab_kernels.py                      # this checkout
     python3 tools/ab_kernels.py --root path/to/other/checkout
+    python3 tools/ab_kernels.py --hybrid [--root ...]
 
 The other checkout's ``src/repro_torch`` is imported (and its kernels
 built) in place of this one's; run the two in turns in separate processes
 (A, B, B, A) and compare within the call. Each line starts with the label
-(--label, default the root's name):
+(--label, default the root's name).
+
+Default (the dense LM and scoring kernels):
 
 - K5 through ``ops.flash_attention`` at the static prefill's launch, q (8,
   2048, 16, 128) and k, v (8, 2048, 8, 128) bf16 causal in the model's
@@ -19,10 +22,20 @@ built) in place of this one's; run the two in turns in separate processes
   launch alone;
 - K3 at the scoring path's (32, 1024, 180) and (32, 64, 186) and a fit's
   (1, 1024, 180), each a transposed view as pca.fit_T hands it over;
-- one static prefill (8, 2048) of qwen3-0.6b (random bf16 weights from
-  --seed): median wall ms of 3 (synchronized), then one profile: device
-  busy ms, K5's ms and launches, and the copies' (memcpy activities and
-  kernels named *copy*, the filter chip_smoke.py's "lm trace" line uses).
+- one static prefill (8, 2048) of qwen3-0.6b.
+
+With --hybrid (K6 and the hybrid LM):
+
+- K6 ``ssd_chunks`` (the full function) at (896, 8, 256, 64) bf16, and,
+  where the port has them, its states and outputs modes at the static
+  prefill's grouped shape (8 batch rows, 8 chunks of 256, 112 heads of 64);
+- one static prefill (8, 2048) of zamba2-7b.
+
+A prefill line gives the median wall ms of 3 (synchronized; random bf16
+weights from --seed), then one profile: device busy ms, the kernel's ms and
+launches (K5: names with "flash_fwd"; K6: "ssd_chunk"), and the copies'
+(memcpy activities and kernels named *copy*, the filter chip_smoke.py's
+trace lines use).
 
 Times are CUDA events around 20 back-to-back calls, median of 7 groups.
 """
@@ -55,33 +68,63 @@ def time_ms(fn, launches: int = 20, reps: int = 7, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
-    ap.add_argument("--label", default=None)
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
-    root = Path(args.root).resolve()
-    label = args.label or root.name
-    sys.path.insert(0, str(root / "src"))
-
+def prefill_report(label: str, arch: str, seed: int, ours: str, max_seq: int = 4096,
+                   b: int = 8, s: int = 2048) -> None:
+    """One static prefill (b, s) of ``arch``: wall time and one profile."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    if not torch.cuda.is_available():
-        print("ab_kernels.py needs a CUDA card; none is available", file=sys.stderr)
-        return 2
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import kernel as ak, ops as ao
-    from repro_torch.kernels.gram import kernel as gk
     from repro_torch.models import build as build_model
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"{label}: {smi}; port from {root / 'src' / 'repro_torch'}")
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    cfg = get_config(arch)
+    model = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(seed),
+                                  device="cuda")
+    model.compute_params()
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        2, cfg.vocab_size, size=(b, s)).astype(np.int32)).to("cuda")
+
+    def prefill():
+        return model.prefill({"tokens": tokens}, max_seq)
+
+    prefill()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prefill()
+        torch.cuda.synchronize()
+    device = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    busy, end, mine, copies = 0.0, float("-inf"), [0.0, 0], [0.0, 0]
+    for e in device:
+        busy += max(0.0, e.time_range.end - max(e.time_range.start, end))
+        end = max(end, e.time_range.end)
+        ms = e.time_range.elapsed_us() / 1e3
+        name = e.name.lower()
+        for acc, hit in ((mine, ours in name), (copies, "copy" in name)):
+            if hit:
+                acc[0] += ms
+                acc[1] += 1
+    print(f"{label}: {arch} static prefill ({b}, {s}): {statistics.median(walls):.3f} ms "
+          f"(median of 3, synchronized); profiled: device busy {busy / 1e3:.3f} ms, {ours} "
+          f"{mine[0]:.3f} ms in {mine[1]} launches, copies {copies[0]:.3f} ms in {copies[1]} "
+          "activities", flush=True)
+
+
+def dense(label: str, seed: int) -> None:
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as ak, ops as ao
+    from repro_torch.kernels.gram import kernel as gk
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     b, s, h, kv, hd = 8, 2048, 16, 8, 128
     q, k, v = (torch.randn((b, s, n, hd), generator=gen, device="cuda").to(torch.bfloat16)
                for n in (h, kv, kv))
@@ -101,44 +144,61 @@ def main() -> int:
         x = torch.randn((batch, p, n), generator=gen, device="cuda").transpose(1, 2)
         print(f"{label}: K3 x {tuple(x.shape)} (transposed view): "
               f"{time_ms(lambda: gk.gram(x)):.4f} ms")
+    prefill_report(label, "qwen3-0.6b", seed, "flash_fwd")
 
-    cfg = get_config("qwen3-0.6b")
-    model = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(args.seed),
-                                  device="cuda")
-    model.compute_params()
-    tokens = torch.from_numpy(np.random.default_rng(args.seed).integers(
-        2, cfg.vocab_size, size=(b, s)).astype(np.int32)).to("cuda")
 
-    def prefill():
-        return model.prefill({"tokens": tokens}, 4096)
+def hybrid(label: str, seed: int) -> None:
+    import torch
 
-    prefill()
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        prefill()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prefill()
-        torch.cuda.synchronize()
-    device = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
-    busy, end, k5, copies = 0.0, float("-inf"), [0.0, 0], [0.0, 0]
-    for e in device:
-        busy += max(0.0, e.time_range.end - max(e.time_range.start, end))
-        end = max(end, e.time_range.end)
-        ms = e.time_range.elapsed_us() / 1e3
-        name = e.name.lower()
-        for acc, hit in ((k5, "flash_fwd" in name), (copies, "copy" in name)):
-            if hit:
-                acc[0] += ms
-                acc[1] += 1
-    print(f"{label}: qwen3-0.6b static prefill ({b}, {s}): {statistics.median(walls):.3f} ms "
-          f"(median of 3, synchronized); profiled: device busy {busy / 1e3:.3f} ms, K5 "
-          f"{k5[0]:.3f} ms in {k5[1]} launches, copies {copies[0]:.3f} ms in {copies[1]} "
-          "activities")
+    from repro_torch.kernels.ssd import kernel as sk
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q, k, v = (randn(896, 8, 256, 64).to(torch.bfloat16) for _ in range(3))
+    ld = (-torch.nn.functional.softplus(randn(896, 8, 256))).to(torch.bfloat16)
+    h_in = 16.0 * randn(896, 8, 64, 64)
+    print(f"{label}: K6 ssd_chunks (896, 8, 256, 64) bf16: "
+          f"{time_ms(lambda: sk.ssd_chunks(q, k, v, ld, h_in), launches=5, reps=5):.4f} ms",
+          flush=True)
+    del q, k, v, ld, h_in
+    if hasattr(sk, "ssd_chunk_states"):
+        g, nc, n_l, hg = 8, 8, 256, 112
+        qk = randn(g, nc, n_l, 128).to(torch.bfloat16)
+        q, k = qk[..., :64], qk[..., 64:]
+        v = randn(g, nc, n_l, hg, 64).to(torch.bfloat16)
+        ld = (-torch.nn.functional.softplus(randn(g, nc, n_l, hg))).to(torch.bfloat16)
+        h_in = 16.0 * randn(g, hg, nc, 64, 64)
+        print(f"{label}: K6 grouped ({g}, {nc}, {n_l}, {hg}, 64) bf16: states "
+              f"{time_ms(lambda: sk.ssd_chunk_states(k, v, ld)):.4f} ms, outputs "
+              f"{time_ms(lambda: sk.ssd_chunk_outputs(q, k, v, ld, h_in)):.4f} ms", flush=True)
+        del qk, q, k, v, ld, h_in
+    torch.cuda.empty_cache()
+    prefill_report(label, "zamba2-7b", seed, "ssd_chunk")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--label", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--hybrid", action="store_true", help="K6 and a zamba2-7b prefill")
+    args = ap.parse_args()
+    root = Path(args.root).resolve()
+    label = args.label or root.name
+    sys.path.insert(0, str(root / "src"))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("ab_kernels.py needs a CUDA card; none is available", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"{label}: {smi}; port from {root / 'src' / 'repro_torch'}", flush=True)
+    (hybrid if args.hybrid else dense)(label, args.seed)
     return 0
 
 

@@ -77,8 +77,8 @@ FAULTS = {
 
 def build_variants(build, tmp: Path, source: str = "flash_attention.cu",
                    faults: dict = FAULTS) -> dict[str, Path]:
-    """Each variant's library (the edited ``source`` and the shared error
-    entry), all nvcc processes started together."""
+    """Each variant's library (the edited ``source``, the shared error
+    entry and the headers), all nvcc processes started together."""
     text0 = (build.CSRC / source).read_text()
     nvcc = build._nvcc()
     jobs = []
@@ -91,7 +91,8 @@ def build_variants(build, tmp: Path, source: str = "flash_attention.cu",
         d = tmp / name
         d.mkdir()
         (d / source).write_text(text)
-        shutil.copy(build.CSRC / "common.cu", d)
+        for shared in [build.CSRC / "common.cu", *build._headers()]:
+            shutil.copy(shared, d)
         objs = [d / Path(source).with_suffix(".o").name, d / "common.o"]
         procs = [subprocess.Popen([nvcc, *build.NVCC_FLAGS, "-c", str(o.with_suffix(".cu")),
                                    "-o", str(o)], stdout=subprocess.PIPE,
