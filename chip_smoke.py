@@ -221,7 +221,10 @@ SSD_SCAN_TOL = (2.0**-7, 2.0**-4)
 # the model's init draws them (cum near -200 at a chunk's end); "weak",
 # Mamba2's published init (softplus(dt_bias) log-uniform in [1e-3, 0.1], A
 # uniform in [1, 16]), so the incoming state still reaches the late rows;
-# "strong", A = 8, cum below -1000 within the chunk.
+# "strong", A = 8, cum below -1000 within the chunk. "short chunk" gives the
+# bf16 body blocks of several heads (G NC Hg = 896 heads over about four
+# waves of 132 SMs: two a block) whose warpgroups own one 64-row slab of y
+# each, so each stores its slab once per head through the same two buffers.
 SSD_CASES = (
     ("static prefill", "full", 8 * 112, 8, 256, 1, "bfloat16", "model"),
     ("batch-1 admission", "full", 112, 2, 256, 1, "bfloat16", "model"),
@@ -233,6 +236,7 @@ SSD_CASES = (
     ("static prefill", "grouped", 8, 8, 256, 112, "bfloat16", "model"),
     ("batch-1 admission", "grouped", 1, 2, 256, 112, "bfloat16", "model"),
     ("ragged L", "grouped", 1, 1, 77, 112, "bfloat16", "model"),
+    ("short chunk", "grouped", 8, 1, 128, 112, "bfloat16", "model"),
     ("strong decay", "grouped", 1, 2, 256, 112, "bfloat16", "strong"),
     ("weak decay", "grouped", 8, 8, 256, 112, "bfloat16", "weak"),
     ("float32", "grouped", 1, 2, 256, 112, "float32", "model"),
@@ -1538,8 +1542,7 @@ def ssd_shares(case, inputs, want) -> tuple[dict[str, float], float]:
                 "state": ssd_share(got[1], want[1], dtype)}, err
     q, k, v, ld, h_in = inputs
     states = sk.ssd_chunk_states(k, v, ld)
-    handed = torch.empty_like(states)
-    sk.launch(sk.STATES, None, k, v, ld, h_in, None, handed)
+    handed = sk._states_handed_h_in(k, v, ld, h_in)
     y = sk.ssd_chunk_outputs(q, k, v, ld, h_in)
     torch.cuda.synchronize()
     err = max(float((states - want["states"]).abs().max()),

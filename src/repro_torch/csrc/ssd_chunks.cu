@@ -357,6 +357,7 @@ ssd_chunk_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int e = 0; e < 4; ++e) hreg[e] = src[e];
   };
   if (S::kY) load_h(0);
+  [[maybe_unused]] int y_stores = 0;  // TMA stores of y this warpgroup has started
   mbar_wait(qk_full, 0);
 
   for (int i = 0; i < w.n; ++i) {
@@ -596,10 +597,13 @@ ssd_chunk_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
         fence_regs(acc);
 
         // y leaves through shared memory and one TMA store (the map clips
-        // rows past L): this slab's buffer is free once the store that read
-        // it two slabs ago has (the warpgroup's slabs alternate buffers).
-        const uint32_t ys = base + S::kYst + (2 * wc + (slab & 1)) * kYSlab;
-        uint8_t* yg = sm + S::kYst + (2 * wc + (slab & 1)) * kYSlab;
+        // rows past L): the warpgroup's stores alternate its two buffers, so
+        // this one is free once the store before the last has read it. (By
+        // the warpgroup's own count of stores, not by slab: a warpgroup that
+        // owns one slab of a short chunk stores it once for every head.)
+        const int buf = 2 * wc + (y_stores++ & 1);
+        const uint32_t ys = base + S::kYst + buf * kYSlab;
+        uint8_t* yg = sm + S::kYst + buf * kYSlab;
         if (tid == 0) bulk_wait_read<1>();
         bar_sync(kBarY + wc, kWg);
         const int ra = 16 * warp + gq;

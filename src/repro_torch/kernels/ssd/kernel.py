@@ -66,14 +66,14 @@ def _strides(name: str, t: torch.Tensor) -> list[int]:
     return out
 
 
-def launch(mode: int, q: torch.Tensor | None, k: torch.Tensor, v: torch.Tensor,
-           ld: torch.Tensor, h_in: torch.Tensor | None, y: torch.Tensor | None,
-           state: torch.Tensor | None) -> None:
-    """One launch of ``mode`` on the grouped layout (see the module
-    docstring), writing ``y`` and / or ``state``. The states mode reads
-    neither q nor h_in (an h_in given to it is passed to the kernel, which
-    must not read it)."""
-    global LAUNCHES
+def _arguments(mode: int, q: torch.Tensor | None, k: torch.Tensor, v: torch.Tensor,
+               ld: torch.Tensor, h_in: torch.Tensor | None, y: torch.Tensor | None,
+               state: torch.Tensor | None) -> list:
+    """``repro_ssd_chunks``'s arguments for one launch of ``mode`` on the
+    grouped layout (see the module docstring), each tensor checked; q and
+    h_in only where the mode reads them."""
+    if mode == STATES and (q is not None or h_in is not None):
+        raise ValueError("ssd_chunks kernel: the states mode reads neither q nor h_in")
     if k.dim() != 4 or v.dim() != 5:
         raise ValueError(f"ssd_chunks kernel: k must be (G, NC, L, 64) and v (G, NC, L, Hg, "
                          f"64), got {tuple(k.shape)}, {tuple(v.shape)}")
@@ -91,9 +91,8 @@ def launch(mode: int, q: torch.Tensor | None, k: torch.Tensor, v: torch.Tensor,
     wants_state = mode != OUTPUTS
     tensors = [("k", k, qk_shape, dt), ("v", v, v_shape, dt), ("ld", ld, (g, nc, l, hg), dt)]
     if wants_y:
-        tensors += [("q", q, qk_shape, dt), ("y", y, v_shape, dt)]
-    if wants_y or h_in is not None:
-        tensors.append(("h_in", h_in, h_shape, torch.float32))
+        tensors += [("q", q, qk_shape, dt), ("y", y, v_shape, dt),
+                    ("h_in", h_in, h_shape, torch.float32)]
     if wants_state:
         tensors.append(("state", state, h_shape, torch.float32))
     for name, t, shape, dtype in tensors:
@@ -104,16 +103,26 @@ def launch(mode: int, q: torch.Tensor | None, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"ssd_chunks kernel: {name} must be contiguous")
     strides = ((_strides("q", q) if wants_y else [0] * 3) + _strides("k", k) + _strides("v", v)
                + (_strides("y", y) if wants_y else [0] * 4) + _strides("ld", ld.unsqueeze(-1)))
-    fn = build.function("repro_ssd_chunks", _ARGTYPES)
-    build.check(
-        fn(q.data_ptr() if wants_y else None, k.data_ptr(), v.data_ptr(), ld.data_ptr(),
-           None if h_in is None else h_in.data_ptr(), y.data_ptr() if wants_y else None,
-           state.data_ptr() if wants_state else None, (ctypes.c_longlong * 4)(g, hg, nc, l),
-           (ctypes.c_longlong * 18)(*strides), mode, _TYPES[dt], dev.index,
-           build.stream_of(k)),
-        "ssd_chunks",
-    )
+    return [q.data_ptr() if wants_y else None, k.data_ptr(), v.data_ptr(), ld.data_ptr(),
+            h_in.data_ptr() if wants_y else None, y.data_ptr() if wants_y else None,
+            state.data_ptr() if wants_state else None, (ctypes.c_longlong * 4)(g, hg, nc, l),
+            (ctypes.c_longlong * 18)(*strides), mode, _TYPES[dt], dev.index,
+            build.stream_of(k)]
+
+
+def _run(args: list) -> None:
+    global LAUNCHES
+    build.check(build.function("repro_ssd_chunks", _ARGTYPES)(*args), "ssd_chunks")
     LAUNCHES += 1
+
+
+def launch(mode: int, q: torch.Tensor | None, k: torch.Tensor, v: torch.Tensor,
+           ld: torch.Tensor, h_in: torch.Tensor | None, y: torch.Tensor | None,
+           state: torch.Tensor | None) -> None:
+    """One launch of ``mode`` on the grouped layout (see the module
+    docstring), writing ``y`` and / or ``state``. The states mode takes
+    neither q nor h_in (None)."""
+    _run(_arguments(mode, q, k, v, ld, h_in, y, state))
 
 
 def ssd_chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor,
@@ -155,3 +164,19 @@ def ssd_chunk_outputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: tor
     y = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     launch(OUTPUTS, q, k, v, ld, h_in, y, None)
     return y
+
+
+def _states_handed_h_in(k: torch.Tensor, v: torch.Tensor, ld: torch.Tensor,
+                        h_in: torch.Tensor) -> torch.Tensor:
+    """The states mode launched with ``h_in``'s address where ``launch``
+    passes none: the kernel must not read it, so the result must be
+    ``ssd_chunk_states(k, v, ld)`` bit for bit (chip_smoke.py's check that
+    pass 1 ignores the incoming state; nothing on the model's path calls it)."""
+    g, nc, _, dk = k.shape
+    state = torch.empty((g, v.shape[3], nc, dk, v.shape[-1]), dtype=torch.float32,
+                        device=k.device)
+    _check("h_in", h_in, state.shape, torch.float32, k.device)
+    args = _arguments(STATES, None, k, v, ld, None, None, state)
+    args[4] = h_in.data_ptr()
+    _run(args)
+    return state

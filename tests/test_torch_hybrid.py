@@ -292,11 +292,29 @@ def test_ssd_mode_kernels_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ssd_kernel.ssd_chunk_outputs(qk, qk, v, ld, h_in)
     with pytest.raises(ValueError, match="CUDA"):
-        ssd_kernel.launch(ssd_kernel.STATES, None, qk, v, ld, h_in, None, h_in)
+        ssd_kernel.launch(ssd_kernel.STATES, None, qk, v, ld, None, None, h_in)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_kernel._states_handed_h_in(qk, v, ld, h_in)
     assert ssd_kernel.LAUNCHES == before
     # the router sends the same CPU tensors to the plain versions
     y, state = ssd_ops.ssd_scan_grouped(qk[:, 0], qk[:, 0], v[:, 0], ld[:, 0])
     assert y.shape == (g, l, hg, d) and state.shape == (g, hg, d, d)
+    assert ssd_kernel.LAUNCHES == before
+
+
+@pytest.mark.parametrize("given", ["q", "h_in"])
+def test_ssd_states_mode_takes_no_q_or_h_in(given):
+    # Pass 1 reads neither C nor the incoming state: launch refuses them in
+    # the states mode before it looks at the device, and launches nothing.
+    g, nc, l, hg, d = 1, 1, 16, 2, 64
+    qk = torch.zeros((g, nc, l, d))
+    v = torch.zeros((g, nc, l, hg, d))
+    ld = torch.zeros((g, nc, l, hg))
+    state = torch.zeros((g, hg, nc, d, d))
+    before = ssd_kernel.LAUNCHES
+    with pytest.raises(ValueError, match="reads neither q nor h_in"):
+        ssd_kernel.launch(ssd_kernel.STATES, qk if given == "q" else None, qk, v, ld,
+                          state if given == "h_in" else None, None, state)
     assert ssd_kernel.LAUNCHES == before
 
 
@@ -611,19 +629,3 @@ def test_ssd_faults_edit_the_kernel_source():
         assert bool(edits) == (name != "none")
         for old, _ in edits:
             assert source.count(old) == 1, name
-
-
-def test_ssd_ablate_edits_the_kernel_source():
-    # tools/ssd_ablate.py times K6 with one part of its work removed per
-    # variant, by text edits of its source; each edit must find its text
-    # exactly once.
-    spec = importlib.util.spec_from_file_location("ssd_ablate", ROOT / "tools" / "ssd_ablate.py")
-    ablate = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(ablate)
-    source = (ROOT / "src" / "repro_torch" / "csrc" / "ssd_chunks.cu").read_text()
-    assert {"base", "no_y_store", "no_pv", "states_no_products"} <= set(ablate.VARIANTS)
-    for name, (_, edits) in ablate.VARIANTS.items():
-        assert bool(edits) == (name != "base")
-        for old, _ in edits:
-            assert source.count(old) == 1, name
-
