@@ -13,11 +13,20 @@ Phases (any failure exits non-zero):
      PyTorch versions at the scoring path's shapes, each with its error,
      its time, the plain version's time, one PyTorch library call's time
      where one computes the same function, and its bound on this card
-     (K4 histogram likewise in phase 6, at the grower's shapes).
+     (K4 histogram likewise in phase 6, at the grower's shapes). K1 on the
+     committed program (dead nodes included) at 1920 rows and at 1927, a
+     multiple of no block size. K2 as the TPU kernel's single level, and
+     as the one-launch packet tree (wpd_tree) and DWT (dwt_levels) the
+     main path runs: the step's (5760, 2048) at levels 4 and 5, the DWT at
+     overlap 2's 5952 rows, and rows of 32 that end shorter than the
+     filter; each within 1e-5 * max|x| of its plain version and bit-equal
+     to the single-level kernel chained level by level; a tree's library
+     call is one conv1d with its composite filters.
   3. Engine: the committed full-width program serves 8 sessions of
      generated EEG (6 chunks each, pushed in chunk-unaligned pieces) at
-     max_batch=8, replay_depth=4, at overlap 0 and at overlap 2; every
-     kernel's launch count must be > 0 after each run.
+     max_batch=8, replay_depth=4, at overlap 0 and at overlap 2; each step
+     must launch K1 once, K2 twice (one packet tree, one DWT) and K3 six
+     times.
   4. Kernel path vs plain path: the same traffic through the engine with
      the plain versions; events must agree exactly in type, patient,
      chunk index, chunk vote and alarm, and a window prediction may
@@ -29,8 +38,10 @@ Phases (any failure exits non-zero):
      trees of depth 6, 32 bins, F = 288) over 2 shards of 16 + 16
      stratified generated chunks, timed by stage (feature extraction and
      its MSPCA eigh, K2 and K3 calls; rotation and its eigh; grower and
-     its K4 calls). K2 and K3 are held against their plain versions on
-     every input shape the fit gave them, and one shard's training
+     its K4 calls). K2 must launch twice per chunk (64 times); K2 and K3
+     are held against their plain versions on every input shape the fit
+     gave them (K2's trees and DWTs also against the chained single
+     level), and one shard's training
      features through the kernels may lie at most twice as far from the
      host CPU's features as the plain path's do (z-units, 99th and 99.9th
      percentile).
@@ -43,7 +54,9 @@ Phases (any failure exits non-zero):
      windows at a time; the served alarms must equal
      ``pipeline.evaluate_timeline``, and the port-trained forest's window
      accuracy may trail the committed JAX-trained program's by at most
-     0.05. A retrain on fresh shards is swapped into the running engine
+     0.05; the same evaluation through the plain versions must give the
+     same chunk votes and alarms (K1 on a second forest), window votes
+     differing only at routing margin < 1e-3. A retrain on fresh shards is swapped into the running engine
      mid-stream; version stamps and the composite old/new alarm oracle
      must be exact.
   7. LM serving at the full width of qwen3-0.6b (28 layers, 751.6 M
@@ -241,6 +254,22 @@ SSD_CASES = (
     ("weak decay", "grouped", 8, 8, 256, 112, "bfloat16", "weak"),
     ("float32", "grouped", 1, 2, 256, 112, "float32", "model"),
 )
+# K1 and K2 cases of phase 2 (tools/scoring_faults.py reads the same). K1: an
+# engine step's rows, and a row count that is a multiple of no block size.
+# K2, one launch a tree: the step's WPD (level 4) and DWT (level 5) of 5760
+# rows of 2048, each also at the other's level, the DWT at overlap 2's 5952
+# rows (62 windows a chunk), and rows of 32, shorter than the filter at the
+# last levels; the single level as the TPU kernel's contract at the first
+# WPD level's 2048 and the second's 1024.
+STEP_ROWS = MAX_BATCH * REPLAY_DEPTH * 60 * 3
+K1_ROWS = (MAX_BATCH * REPLAY_DEPTH * 60, 1927)
+K2_CASES = (
+    ("wpd_tree", (STEP_ROWS, 2048), 4), ("wpd_tree", (STEP_ROWS, 2048), 5),
+    ("dwt_levels", (STEP_ROWS, 2048), 5), ("dwt_levels", (STEP_ROWS, 2048), 4),
+    ("dwt_levels", (MAX_BATCH * REPLAY_DEPTH * 62 * 3, 2048), 5),
+    ("wpd_tree", (7, 32), 4), ("dwt_levels", (7, 32), 4),
+)
+K2_LEVEL_CASES = ((STEP_ROWS, 2048), (STEP_ROWS, 1024))
 # The grouped cases hold each mode to its plain version (SSD_TOL) and, beside
 # that, to the plain version on float32 copies of the same inputs, which
 # rounds nothing: the kernel's states are float32 products of exact bf16
@@ -276,6 +305,26 @@ def time_ms(fn, launches: int = 20, reps: int = 7, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, kernel: str, calls: int = 20) -> float | None:
+    """Device time of one ``fn()`` in the kernels whose names contain
+    ``kernel``, from a profile of ``calls`` calls (None if the profiler saw
+    none). Beside ``time_ms`` it shows how much of a small kernel's call is
+    the host's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return sum(us) / calls / 1e3 if us else None
+
+
 def bound_ms(n_bytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S
              ) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -294,17 +343,24 @@ def plain_versions():
     from repro_torch.kernels.ssd import kernel as sk, ref as sr
     from repro_torch.kernels.wpd import kernel as wk, ref as wr
 
-    saved = (fk.forest_traverse, gk.gram, wk.wpd_level, hk.class_histogram, ak.flash_attention,
-             sk.ssd_chunks, sk.ssd_chunk_states, sk.ssd_chunk_outputs)
-    (fk.forest_traverse, gk.gram, wk.wpd_level, hk.class_histogram, ak.flash_attention,
-     sk.ssd_chunks, sk.ssd_chunk_states, sk.ssd_chunk_outputs) = (
-        fr.forest_traverse, gr.gram, wr.wpd_level, hr.class_histogram, ao.reference,
-        sr.ssd_chunks, sr.ssd_chunk_states, sr.ssd_chunk_outputs)
+    def forest_plain(x, proj_nodes, thr, next_node, leaf_probs):
+        # The wrapper's operands are K1's tables; the plain version reads
+        # proj (T, F, L), which transposing them back gives bit for bit.
+        return fr.forest_traverse(x, proj_nodes.transpose(1, 2).contiguous(), thr, leaf_probs)
+
+    saved = (fk.forest_traverse, gk.gram, wk.wpd_level, wk.wpd_tree, wk.dwt_levels,
+             hk.class_histogram, ak.flash_attention, sk.ssd_chunks, sk.ssd_chunk_states,
+             sk.ssd_chunk_outputs)
+    (fk.forest_traverse, gk.gram, wk.wpd_level, wk.wpd_tree, wk.dwt_levels, hk.class_histogram,
+     ak.flash_attention, sk.ssd_chunks, sk.ssd_chunk_states, sk.ssd_chunk_outputs) = (
+        forest_plain, gr.gram, wr.wpd_level, wr.wpd_tree, wr.dwt_levels, hr.class_histogram,
+        ao.reference, sr.ssd_chunks, sr.ssd_chunk_states, sr.ssd_chunk_outputs)
     try:
         yield
     finally:
-        (fk.forest_traverse, gk.gram, wk.wpd_level, hk.class_histogram,
-         ak.flash_attention, sk.ssd_chunks, sk.ssd_chunk_states, sk.ssd_chunk_outputs) = saved
+        (fk.forest_traverse, gk.gram, wk.wpd_level, wk.wpd_tree, wk.dwt_levels,
+         hk.class_histogram, ak.flash_attention, sk.ssd_chunks, sk.ssd_chunk_states,
+         sk.ssd_chunk_outputs) = saved
 
 
 def _kernel_modules() -> dict:
@@ -331,24 +387,47 @@ def reset_counts() -> None:
 def path_walk(x, packed):
     """Walk every row down every tree. Returns the (rows,) routing margin,
     min over trees and live path nodes of |x . proj - thr| (how far each
-    row is from flipping a route), and the number of live (finite-thr)
-    nodes the rows visit in all: the node values the forest needs."""
+    row is from flipping a route), and what the walk needs: {"visits": live
+    (finite-thr) nodes the rows visit in all, the node values the forest
+    computes; "nodes": distinct live nodes visited, whose columns, thr and
+    next_node entries are read; "leaves": distinct leaves reached, whose
+    class rows are read}."""
     import torch
 
     vals = torch.einsum("bf,tfl->tbl", x, packed.proj)
     rows = torch.arange(x.shape[0], device=x.device)
     out = torch.full((x.shape[0],), float("inf"), device=x.device)
-    live = 0
-    depth = packed.proj.shape[-1].bit_length() - 1
+    visits = nodes = leaves = 0
+    n_leaves = packed.proj.shape[-1]
+    depth = n_leaves.bit_length() - 1
     for t in range(packed.proj.shape[0]):
         node = torch.ones(x.shape[0], dtype=torch.long, device=x.device)
+        seen = torch.zeros(n_leaves, dtype=torch.bool, device=x.device)
         for _ in range(depth):
             v, th = vals[t, rows, node], packed.thr[t, node]
             finite = torch.isfinite(th)
-            live += int(finite.sum())
+            visits += int(finite.sum())
+            seen[node[finite]] = True
             out = torch.minimum(out, torch.where(finite, (v - th).abs(), torch.inf))
             node = 2 * node + (v > th).long()
-    return out, live
+        nodes += int(seen.sum())
+        leaves += int(torch.unique(node).numel())
+    return out, dict(visits=visits, nodes=nodes, leaves=leaves)
+
+
+def wpd_check(xr) -> tuple[float, float]:
+    """K2's single level on xr (rows, N): (max abs error against the plain
+    version, its tolerance 1e-5 * max|x|)."""
+    import torch
+
+    from repro_torch.kernels.wpd import kernel as wk, ref as wr
+    from repro_torch.signal import wavelet
+
+    h, g = wavelet.filters("db4")
+    (ka, kd), (pa, pd) = wk.wpd_level(xr, h, g), wr.wpd_level(xr, h, g)
+    torch.cuda.synchronize()
+    err = max(float((ka - pa).abs().max()), float((kd - pd).abs().max()))
+    return err, 1e-5 * float(xr.abs().max())
 
 
 def wpd_row(xr) -> dict:
@@ -363,10 +442,7 @@ def wpd_row(xr) -> dict:
     h, g = wavelet.filters("db4")  # host taps, as the wavelet module passes them
     weight = torch.stack([h, g])[:, None, :].to(xr.device)  # (2, 1, taps)
     taps = h.shape[0]
-    (ka, kd), (pa, pd) = wk.wpd_level(xr, h, g), wr.wpd_level(xr, h, g)
-    torch.cuda.synchronize()
-    err = max(float((ka - pa).abs().max()), float((kd - pd).abs().max()))
-    tol = 1e-5 * float(xr.abs().max())
+    err, tol = wpd_check(xr)
     if not err <= tol:
         fail(f"wpd_level kernel {tuple(xr.shape)} disagrees with its plain version: "
              f"{err} > {tol}")
@@ -381,6 +457,194 @@ def wpd_row(xr) -> dict:
         ms=time_ms(lambda: wk.wpd_level(xr, h, g)),
         plain_ms=time_ms(lambda: wr.wpd_level(xr, h, g)),
         library_ms=time_ms(conv), bound_ms=b_ms, bound_by=b_by,
+    )
+
+
+def wpd_chain(x, level: int, tree: bool) -> list:
+    """The single-level kernel chained level by level, as the port ran K2
+    before one launch took a whole tree: [nodes] for a packet tree (stacked
+    into Paley order after each level), [D1, ..., D_level, A_level] for a
+    DWT."""
+    import torch
+
+    from repro_torch.kernels.wpd import kernel as wk
+    from repro_torch.signal import wavelet
+
+    h, g = wavelet.filters("db4")
+    if tree:
+        nodes = x[:, None, :]
+        for _ in range(level):
+            a, d = wk.wpd_level(nodes.reshape(-1, nodes.shape[-1]), h, g)
+            lead = nodes.shape[:-1] + (-1,)
+            nodes = torch.stack([a.reshape(lead), d.reshape(lead)], dim=-2).reshape(
+                x.shape[0], -1, a.shape[-1])
+        return [nodes]
+    coeffs, cur = [], x
+    for _ in range(level):
+        cur, d = wk.wpd_level(cur, h, g)
+        coeffs.append(d)
+    return coeffs + [cur]
+
+
+def tree_filters(h, g, level: int):
+    """The packet tree's 2**level composite filters, (2**level, 1, K) float32
+    in Paley order, K = (2**level - 1)(taps - 1) + 1: periodization commutes
+    with each analysis level (2 (y mod N/2) = 2y mod N), so node i of a
+    level-L tree is x circularly convolved with the filters on i's path, the
+    level-j one spread 2**(j-1) apart, and taken every 2**L samples."""
+    import numpy as np
+    import torch
+
+    bank = [np.ones(1)]
+    for j in range(level):
+        spread = []
+        for f in (h, g):
+            u = np.zeros((f.shape[0] - 1) * 2**j + 1)
+            u[:: 2**j] = f.double().numpy()
+            spread.append(u)
+        bank = [np.convolve(c, u) for c in bank for u in spread]  # node i -> 2i, 2i + 1
+    return torch.tensor(np.stack(bank), dtype=torch.float32)[:, None, :]
+
+
+def tree_conv(x, bank):
+    """One PyTorch call for a packet tree of x (rows, N): circular padding,
+    then ``F.conv1d`` with the composite filters ``bank`` at stride
+    2**level -> (rows, 2**level, N / 2**level)."""
+    import torch.nn.functional as F
+
+    n, stride = x.shape[-1], bank.shape[0]
+    pad = bank.shape[-1] - stride
+    xp = (F.pad(x[:, None, :], (0, pad), mode="circular") if pad <= n
+          else x[:, None, :].repeat(1, 1, -(-(n + pad) // n))[..., : n + pad])
+    return F.conv1d(xp, bank, stride=stride)
+
+
+def multilevel_check(kind: str, x, level: int) -> tuple[float, float, bool]:
+    """K2's one-launch ``kind`` ("wpd_tree" or "dwt_levels") on x (rows,
+    N): (max abs error against its plain version, its tolerance 1e-5 *
+    max|x|, whether it equals the chained single-level kernel bit for
+    bit)."""
+    import torch
+
+    from repro_torch.kernels.wpd import kernel as wk, ref as wr
+    from repro_torch.signal import wavelet
+
+    h, g = wavelet.filters("db4")
+    tree = kind == "wpd_tree"
+
+    def listed(v):
+        return [v] if tree else v
+
+    got = listed(getattr(wk, kind)(x, h, g, level))
+    want = listed(getattr(wr, kind)(x, h, g, level))
+    chained = wpd_chain(x, level, tree)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    bits = all(torch.equal(a, b) for a, b in zip(got, chained))
+    return err, 1e-5 * float(x.abs().max()), bits
+
+
+def multilevel_row(kind: str, x, level: int) -> dict:
+    """K2's one-launch ``kind`` ("wpd_tree" or "dwt_levels") on x (rows, N)
+    at ``level``: within 1e-5 * max|x| of its plain version (the chained
+    plain levels) and bit-equal to the chained single-level kernel, timed
+    beside both and, for a tree, beside one conv1d with its composite
+    filters (``tree_conv``, checked to the same tolerance). No single call
+    computes a DWT: each scale has its own stride."""
+    from repro_torch.kernels.wpd import kernel as wk, ref as wr
+    from repro_torch.signal import wavelet
+
+    h, g = wavelet.filters("db4")
+    tree = kind == "wpd_tree"
+    fn, plain = getattr(wk, kind), getattr(wr, kind)
+    err, tol, bits = multilevel_check(kind, x, level)
+    if not err <= tol:
+        fail(f"{kind} kernel {tuple(x.shape)} level {level} disagrees with its plain version: "
+             f"{err} > {tol}")
+    if not bits:
+        fail(f"{kind} kernel {tuple(x.shape)} level {level} differs from the chained "
+             "single-level kernel")
+    # Read x once, write N floats a row once; 2 * taps flops per coefficient
+    # pair and level (a tree splits every row-length at every level, a DWT
+    # halves what it splits).
+    taps = h.shape[0]
+    passes = level if tree else 2 - 2.0 ** (1 - level)
+    b_ms, b_by = bound_ms(4 * 2 * x.numel(), 2.0 * taps * x.numel() * passes)
+    dev = device_ms(lambda: fn(x, h, g, level), "wpd_kernel")
+    library_ms, library = None, ""
+    if tree:
+        bank = tree_filters(h, g, level).to(x.device)
+        lib_err = float((tree_conv(x, bank) - plain(x, h, g, level)).abs().max())
+        if not lib_err <= tol:
+            fail(f"conv1d with the composite filters at {tuple(x.shape)} level {level} is not "
+                 f"the packet tree: {lib_err} > {tol}")
+        library_ms = time_ms(lambda: tree_conv(x, bank))
+        library = f"; library conv1d of {bank.shape[-1]} taps, stride {bank.shape[0]}, error {lib_err:.3e}"
+    return dict(
+        shape=f"x {tuple(x.shape)}, level {level}", max_abs_err=err, tol=tol,
+        note=(f"bit-equal to {level} chained single-level launches "
+              f"({time_ms(lambda: wpd_chain(x, level, tree)):.4f} ms){library}; device "
+              + ("not measured" if dev is None else f"{dev:.4f} ms (profiler)")),
+        ms=time_ms(lambda: fn(x, h, g, level)),
+        plain_ms=time_ms(lambda: plain(x, h, g, level)),
+        library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+    )
+
+
+def forest_args(x, packed) -> tuple:
+    """K1's operands: x and the packed forest's walk tables."""
+    return x, packed.proj_nodes, packed.thr, packed.next_node, packed.leaf_probs
+
+
+def forest_check(x, packed) -> tuple[float, float, int, dict]:
+    """K1 on x (rows, F) through the packed forest's walk tables: (max abs
+    error against the plain version over the rows whose routing margin is
+    at least 1e-4, its tolerance 1e-6, the rows left out, what the walk
+    needs as ``path_walk`` counts it)."""
+    import torch
+
+    from repro_torch.kernels.forest import kernel as fk, ref as fr
+
+    got = fk.forest_traverse(*forest_args(x, packed))
+    want = fr.forest_traverse(x, packed.proj, packed.thr, packed.leaf_probs)
+    torch.cuda.synchronize()
+    margin, need = path_walk(x, packed)
+    safe = margin >= 1e-4
+    err = float((got - want).abs()[safe].max())
+    return err, 1e-6, int((~safe).sum()), need
+
+
+def forest_row(x, packed) -> dict:
+    """K1 against its plain version on x (rows, F): within 1e-6 on every
+    row whose routing margin is at least 1e-4, timed beside its bound."""
+    from repro_torch.kernels.forest import kernel as fk, ref as fr
+
+    args = forest_args(x, packed)
+    err, tol, flipped, need = forest_check(x, packed)
+    if not err <= tol:
+        fail(f"forest kernel {tuple(x.shape)} disagrees with its plain version: {err} > {tol}")
+    # The function needs one dot product per live node on each row's path
+    # (the kernel computes just those), and reads x, the column, thr and
+    # next_node entry of each live node visited (and each tree's first
+    # entry), the class row of each leaf reached, and writes the output.
+    (b, f), n_trees = x.shape, packed.proj.shape[0]
+    n_classes = packed.leaf_probs.shape[-1]
+    b_ms, b_by = bound_ms(
+        4 * (x.numel() + (f + 1 + 2) * need["nodes"] + 2 * n_trees
+             + n_classes * need["leaves"] + b * n_classes),
+        2.0 * f * need["visits"],
+    )
+    dev = device_ms(lambda: fk.forest_traverse(*args), "forest_kernel")
+    return dict(
+        shape=f"x {tuple(x.shape)}, proj {tuple(packed.proj.shape)}",
+        max_abs_err=err, tol=tol,
+        note=(f"{flipped} rows with margin < 1e-4 excluded; {need['visits']} live path node "
+              f"visits, {need['nodes']} live nodes and {need['leaves']} leaves reached; device "
+              + ("not measured" if dev is None else f"{dev:.4f} ms (profiler)")),
+        ms=time_ms(lambda: fk.forest_traverse(*args)),
+        plain_ms=time_ms(lambda: fr.forest_traverse(x, packed.proj, packed.thr,
+                                                    packed.leaf_probs)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
     )
 
 
@@ -420,48 +684,28 @@ def gram_row(xv) -> dict:
 def check_kernels(program, gen) -> dict[str, dict]:
     import torch
 
-    from repro_torch.kernels.forest import kernel as fk, ref as fr
-
     dev = torch.device("cuda")
     rows = {}
 
-    # K1: the z-scored feature rows of one engine step, B*D*60 = 1920.
-    packed = program.packed
-    f = packed.proj.shape[1]
-    x = torch.randn((MAX_BATCH * REPLAY_DEPTH * 60, f), generator=gen, device=dev)
-    args = (x, packed.proj, packed.thr, packed.leaf_probs)
-    got, want = fk.forest_traverse(*args), fr.forest_traverse(*args)
-    torch.cuda.synchronize()
-    margin, live_nodes = path_walk(x, packed)
-    safe = margin >= 1e-4
-    err = float((got - want).abs()[safe].max())
-    flipped = int((~safe).sum())
-    n_classes = packed.leaf_probs.shape[-1]
-    tol = 1e-6
-    # The function needs one dot product per live node on each row's path
-    # (the kernel computes every node column; the bound counts what the
-    # data needs).
-    b_ms, b_by = bound_ms(
-        4 * (x.numel() + packed.proj.numel() + packed.thr.numel()
-             + packed.leaf_probs.numel() + x.shape[0] * n_classes),
-        2.0 * f * live_nodes,
-    )
-    rows["forest"] = dict(
-        shape=f"x {tuple(x.shape)}, proj {tuple(packed.proj.shape)}",
-        max_abs_err=err, tol=tol,
-        note=f"{flipped} rows with margin < 1e-4 excluded; {live_nodes} live path nodes",
-        ms=time_ms(lambda: fk.forest_traverse(*args)),
-        plain_ms=time_ms(lambda: fr.forest_traverse(*args)),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by,
-    )
-    if not err <= tol:
-        fail(f"forest kernel disagrees with its plain version: {err} > {tol}")
+    # The first K1 case, the single K2 levels and K3 draw their inputs from
+    # gen in the order they always have; the one-launch K2 cases and K1's
+    # second from a generator of their own, so the later phases' traffic,
+    # training set and timeline stay the draws they were.
+    extra = torch.Generator(device=dev).manual_seed(SEED + 1)
 
-    # K2: the first WPD level of one step (5760 rows of 2048) and the
-    # second (1024); MSPCA's DWT runs the same operator.
-    for n in (2048, 1024):
-        xr = torch.randn((MAX_BATCH * REPLAY_DEPTH * 60 * 3, n), generator=gen, device=dev)
-        rows[f"wpd_level/{n}"] = wpd_row(xr)
+    # K1 (K1_ROWS) on the committed program, whose dead nodes the walk skips.
+    packed = program.packed
+    for b in K1_ROWS:
+        x = torch.randn((b, packed.proj.shape[1]), generator=gen if b == K1_ROWS[0] else extra,
+                        device=dev)
+        rows["forest" if b == K1_ROWS[0] else f"forest/{b} rows"] = forest_row(x, packed)
+
+    # K2 (K2_CASES): one level, then one launch a packet tree or a DWT.
+    for shape in K2_LEVEL_CASES:
+        rows[f"wpd_level/{shape[1]}"] = wpd_row(torch.randn(shape, generator=gen, device=dev))
+    for kind, shape, level in K2_CASES:
+        xr = torch.randn(shape, generator=extra, device=dev)
+        rows[f"{kind}/{shape[0]}x{shape[1]} L{level}"] = multilevel_row(kind, xr, level)
 
     # K3: MSPCA's finest and coarsest per-scale covariances of one step,
     # passed as the transposed view pca.fit_T hands over.
@@ -714,7 +958,7 @@ def trace_step(program, traffic) -> None:
             continue
         ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
         ours = [kv for kv in ranked
-                if any(k in kv[0] for k in ("forest_kernel", "gram_kernel", "wpd_level_kernel"))]
+                if any(k in kv[0] for k in ("forest_kernel", "gram_kernel", "wpd_kernel"))]
         for kname, (ms, n) in ranked[:10] + ours:
             print(f"trace kernel: {ms:.3f} ms in {n} launches: {kname[:110]}")
 
@@ -763,8 +1007,8 @@ def training_set(gen):
 def timed_fit(gen, rec, cfg):
     """One MapReduce fit with its stage times (seconds) and the kernels'
     inputs as the fit handed them over: {"histogram": {n_buckets: (codes,
-    wy)}, "wpd_level": {shape: x}, "gram": {shape: x}}, the last call per
-    bucket count and the first per shape."""
+    wy)}, "wpd_tree" and "dwt_levels": {(shape, level): x}, "gram": {shape:
+    x}}, the last call per bucket count and the first per shape."""
     import torch
 
     from repro_torch.core import decision_tree as dt
@@ -776,13 +1020,20 @@ def timed_fit(gen, rec, cfg):
     from repro_torch.signal import pipeline
 
     stages: dict[str, float] = {}
-    captured: dict[str, dict] = {"histogram": {}, "wpd_level": {}, "gram": {}}
+    captured: dict[str, dict] = {"histogram": {}, "wpd_tree": {}, "dwt_levels": {}, "gram": {}}
+
+    def k2_hook(kind):
+        def capture(a):
+            rows = a[0].reshape(-1, a[0].shape[-1])
+            captured[kind].setdefault((tuple(rows.shape), a[3]), rows)
+        return capture
+
     with contextlib.ExitStack() as stack:
         for owner, name, label, hook in (
             (pipeline, "process_windows", "feature extraction (MSPCA + WPD)", None),
             (pca, "_eig_sorted", "of which MSPCA eigh (pca._eig_sorted)", None),
-            (wk, "wpd_level", "of which K2 wpd_level (DWT and WPD levels)",
-             lambda a: captured["wpd_level"].setdefault(tuple(a[0].shape), a[0])),
+            (wk, "wpd_tree", "of which K2 (WPD trees and DWTs)", k2_hook("wpd_tree")),
+            (wk, "dwt_levels", "of which K2 (WPD trees and DWTs)", k2_hook("dwt_levels")),
             (gk, "gram", "of which K3 gram (MSPCA covariances)",
              lambda a: captured["gram"].setdefault(tuple(a[0].shape), a[0])),
             (rf, "_prepare_trees", "tree prep (rotation, x @ R, binning)", None),
@@ -812,8 +1063,9 @@ def _z_units(got, want) -> dict[str, float]:
 
 
 def check_fit_features(captured, rec, cfg) -> None:
-    """K2 and K3 against their plain versions on every input shape the fit
-    handed them (the tolerances of phase 2); then one shard's training
+    """K2 (one level, and each tree and DWT launch) and K3 against their
+    plain versions on every input shape the fit handed them (the checks of
+    phase 2); then one shard's training
     features three ways: through the kernels, through the plain versions
     on the card, and through the port on the host CPU (LAPACK's eigh,
     the path the CPU tests hold to the reference). MSPCA's eigh turns the
@@ -827,8 +1079,11 @@ def check_fit_features(captured, rec, cfg) -> None:
     second."""
     from repro_torch.signal import pipeline
 
-    rows = {f"wpd_level/fit {tuple(x.shape)}": wpd_row(x)
-            for x in captured["wpd_level"].values()}
+    rows = {}
+    for kind in ("wpd_tree", "dwt_levels"):
+        for (shape, level), x in captured[kind].items():
+            rows.setdefault(f"wpd_level/fit {shape}", wpd_row(x))
+            rows[f"{kind}/fit {shape[0]}x{shape[1]} L{level}"] = multilevel_row(kind, x, level)
     rows.update({f"gram/fit {tuple(x.shape)}": gram_row(x)
                  for x in captured["gram"].values()})
     print_kernel_rows(rows)
@@ -945,7 +1200,7 @@ def training_phase(gen, committed) -> tuple[dict, dict]:
     import torch
 
     from repro_torch.serving import api
-    from repro_torch.signal import eeg_data, pipeline
+    from repro_torch.signal import eeg_data, features, pipeline
 
     cfg = pipeline.PipelineConfig()
     rec = training_set(gen)
@@ -965,8 +1220,13 @@ def training_phase(gen, committed) -> tuple[dict, dict]:
             print(f"train stage {label}: {sec:.3f} s ({sec / stages['fit']:.1%} of the fit)")
     if counts["histogram"] != n_levels:
         fail(f"K4 launched {counts['histogram']} times in the fit, expected {n_levels}")
-    if min(counts[k] for k in ("wpd_level", "gram")) == 0:
-        fail(f"a feature kernel of the fit never launched: {counts}")
+    # Feature extraction runs one DWT and one packet tree per chunk (K2).
+    n_chunks = n_train // eeg_data.WINDOWS_PER_MATRIX
+    if counts["wpd_level"] != 2 * n_chunks:
+        fail(f"K2 launched {counts['wpd_level']} times in the fit, expected 2 per chunk "
+             f"({2 * n_chunks})")
+    if counts["gram"] == 0:
+        fail(f"K3 never launched in the fit: {counts}")
     if fitted.forest.rotation.shape[0] != cfg.forest.n_trees:
         fail(f"union forest has {fitted.forest.rotation.shape[0]} trees")
     check_fit_features(captured, rec, cfg)
@@ -1003,6 +1263,25 @@ def training_phase(gen, committed) -> tuple[dict, dict]:
     if acc < ref_acc - 0.05:
         fail(f"port-trained accuracy {acc:.4f} trails the committed program's "
              f"{ref_acc:.4f} by more than 0.05")
+    # K1 on a forest other than the committed one: the same evaluation
+    # through the plain versions.
+    with plain_versions():
+        res_plain = pipeline.evaluate_timeline(fitted, timeline, cfg)
+    if not (torch.equal(res.chunk_preds, res_plain.chunk_preds)
+            and torch.equal(res.alarms, res_plain.alarms)):
+        fail("the port-trained forest's chunk votes or alarms differ between the kernel path "
+             "and the plain path")
+    bad = (res.window_preds != res_plain.window_preds).nonzero()[:, 0]
+    if bad.numel():
+        with plain_versions():
+            x, _, _ = features.normalize(pipeline.process_windows(timeline.windows, cfg),
+                                         fitted.feat_mean, fitted.feat_std)
+        margins = path_walk(x[bad.to(x.device)], program.packed)[0]
+        if not bool((margins < 1e-3).all()):
+            fail(f"port-trained forest: window votes differ at routing margins {margins.tolist()}")
+    print(f"serve held-out, plain path: window accuracy "
+          f"{float((res_plain.window_preds == labels).float().mean()):.4f}; chunk votes and "
+          f"alarms equal, {bad.numel()} window votes differ (all at routing margin < 1e-3)")
 
     # Retrain on fresh shards, swap into the running engine mid-stream.
     fitted2, stages2, _ = timed_fit(gen, training_set(gen), cfg)
@@ -1848,8 +2127,12 @@ def main() -> int:
               f"launches {counts}")
         if stats["chunks"] != N_SESSIONS * CHUNKS_PER_SESSION:
             fail(f"scored {stats['chunks']} chunks, expected {N_SESSIONS * CHUNKS_PER_SESSION}")
-        if min(counts[k] for k in launches) == 0:
-            fail(f"a kernel of the path never launched: {counts}")
+        # Each step votes once (K1), runs one packet tree and one DWT (K2)
+        # and one Gram per DWT scale (K3).
+        per_step = {"forest": 1, "wpd_level": 2, "gram": 6}
+        want = {k: n * stats["steps"] for k, n in per_step.items()}
+        if {k: counts[k] for k in launches} != want:
+            fail(f"kernel launches {counts} over {stats['steps']} steps, expected {want}")
         for k in launches:
             launches[k] += counts[k]
         reset_counts()
@@ -1890,7 +2173,8 @@ def main() -> int:
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:103",
         "ssd_chunks": "src/repro/kernels/ssd/kernel.py:74",
     }
-    main_rows = {"forest": "forest", "wpd_level": "wpd_level/2048", "gram": "gram/1024x180",
+    # K2's row: the step's packet tree, the larger of its two launches a step.
+    main_rows = {"forest": "forest", "wpd_level": "wpd_tree/5760x2048 L4", "gram": "gram/1024x180",
                  "histogram": f"histogram/{max(int(k.split('/')[1]) for k in hist_rows)}",
                  "flash_attention": next(iter(flash_rows)), "ssd_chunks": next(iter(ssd_rows))}
     line = {"kernels": [

@@ -19,11 +19,17 @@ from repro_torch.kernels.forest import ref as _ref
 
 
 class PackedForest(NamedTuple):
-    """Dense inference-only forest (leading axis = tree); see ref.py."""
+    """Dense inference-only forest (leading axis = tree); see ref.py.
+    ``proj_nodes`` and ``next_node`` are the tables K1 walks, derived from
+    ``proj`` and ``thr`` (``with_walk_tables``) where a forest is packed
+    and where a program moves to its device, and never saved; the plain
+    version does not read them."""
 
     proj: torch.Tensor        # (T, F, L)
     thr: torch.Tensor         # (T, L), +inf = dead node
     leaf_probs: torch.Tensor  # (T, L, C)
+    proj_nodes: torch.Tensor | None = None  # (T, L, F) float32
+    next_node: torch.Tensor | None = None   # (T, L, 2) int32
 
     @property
     def n_trees(self) -> int:
@@ -32,6 +38,13 @@ class PackedForest(NamedTuple):
     @property
     def n_features(self) -> int:
         return self.proj.shape[1]
+
+
+def with_walk_tables(packed: PackedForest) -> PackedForest:
+    """``packed`` with K1's tables derived from its ``proj`` and ``thr``:
+    the node-major copy of proj and each node's next live node."""
+    return packed._replace(proj_nodes=_kernel.node_major(packed.proj),
+                           next_node=_kernel.next_live(packed.thr))
 
 
 def pack_forest(params: Any) -> PackedForest:
@@ -59,10 +72,10 @@ def pack_forest(params: Any) -> PackedForest:
     thr = torch.gather(edges_at_feat, 2, safe_bin[:, :, None])[..., 0]
     dead = (feat < 0) | (sbin >= n_edges)
     thr = torch.where(dead, torch.inf, thr)
-    return PackedForest(
+    return with_walk_tables(PackedForest(
         proj=proj.contiguous(), thr=thr.contiguous(),
         leaf_probs=params.trees.leaf_probs.to(torch.float32).contiguous(),
-    )
+    ))
 
 
 def forest_predict_proba(packed: PackedForest, x: torch.Tensor) -> torch.Tensor:
@@ -75,8 +88,11 @@ def forest_predict_proba(packed: PackedForest, x: torch.Tensor) -> torch.Tensor:
     if x.shape[1] < f:
         x = F.pad(x, (0, f - x.shape[1]))
     if on_cuda(x, "forest_predict_proba"):
+        if packed.proj_nodes is None or packed.next_node is None:
+            raise ValueError("forest_predict_proba: the packed forest has no walk tables "
+                             "(pack_forest and ScoringProgram.to derive them)")
         total = _kernel.forest_traverse(
-            x.contiguous(), packed.proj, packed.thr, packed.leaf_probs
+            x.contiguous(), packed.proj_nodes, packed.thr, packed.next_node, packed.leaf_probs
         )
     else:
         total = _ref.forest_traverse(x, packed.proj, packed.thr, packed.leaf_probs)

@@ -26,3 +26,31 @@ def wpd_level(
         a += torch.mul(v, hk, out=term)
         d += torch.mul(v, gk, out=term)
     return a, d
+
+
+def wpd_tree(x: torch.Tensor, h: torch.Tensor, g: torch.Tensor, level: int) -> torch.Tensor:
+    """x (..., N) -> (..., 2**level, N / 2**level): ``level`` chained
+    levels, every node split, in Paley order (node 2i is the low branch of
+    node i, 2i+1 the high one)."""
+    lead, n = x.shape[:-1], x.shape[-1]
+    if n % (2**level) != 0:
+        raise ValueError(f"signal length {n} not divisible by 2**{level}")
+    nodes = x.unsqueeze(-2)
+    for _ in range(level):
+        a, d = wpd_level(nodes, h, g)
+        nodes = torch.stack([a, d], dim=-2).reshape(lead + (a.shape[-2] * 2, a.shape[-1]))
+    return nodes
+
+
+def dwt_levels(
+    x: torch.Tensor, h: torch.Tensor, g: torch.Tensor, level: int
+) -> list[torch.Tensor]:
+    """x (..., N) -> [D1, ..., D_level, A_level]: ``level`` chained levels,
+    only the approximation split."""
+    coeffs = []
+    cur = x
+    for _ in range(level):
+        cur, d = wpd_level(cur, h, g)
+        coeffs.append(d)
+    coeffs.append(cur)
+    return coeffs

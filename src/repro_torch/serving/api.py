@@ -127,7 +127,7 @@ class ScoringProgram:
         forest_cfg = RotationForestConfig(**cfg_json.pop("forest"))
         cfg = PipelineConfig(forest=forest_cfg, **cfg_json)
         t = {
-            k: torch.from_numpy(np.array(arrays[k], dtype=np.float32)).to(device)
+            k: torch.from_numpy(np.array(arrays[k], dtype=np.float32))
             for k in _ARRAY_KEYS
         }
         n_trees, f, n_leaves = t["proj"].shape
@@ -147,14 +147,16 @@ class ScoringProgram:
             feat_mean=t["feat_mean"],
             feat_std=t["feat_std"],
             cfg=cfg,
-        )
+        ).to(device)
 
     def to(self, device: torch.device | str | None = None) -> "ScoringProgram":
-        """The same program with its leaves on ``device`` (as float32)."""
+        """The same program with its leaves on ``device`` (as float32), and
+        the tables K1 walks derived there."""
         dev = resolve_device(device)
-        packed = forest_ops.PackedForest(
-            *(x.to(device=dev, dtype=torch.float32).contiguous() for x in self.packed)
-        )
+        packed = forest_ops.with_walk_tables(forest_ops.PackedForest(*(
+            x.to(device=dev, dtype=torch.float32).contiguous()
+            for x in (self.packed.proj, self.packed.thr, self.packed.leaf_probs)
+        )))
         return dataclasses.replace(
             self, packed=packed,
             feat_mean=self.feat_mean.to(device=dev, dtype=torch.float32),

@@ -5,7 +5,8 @@ the low-pass h and high-pass g filters and keeps every second sample;
 the operator a[n] = sum_k h[k] x[(2n + k) mod N] has orthonormal rows, so
 synthesis is its transpose and round trips are exact. Every analysis
 level -- the WPD features and MSPCA's DWT alike -- goes through
-``kernels.wpd`` (K2 on a CUDA tensor). Synthesis is plain PyTorch in the
+``kernels.wpd`` (K2 on a CUDA tensor: one launch for a whole packet tree
+or DWT). Synthesis is plain PyTorch in the
 reference's pad + static-slice polyphase form.
 """
 
@@ -102,14 +103,9 @@ def synthesis_step_reference(
 
 
 def dwt(x: torch.Tensor, level: int, wavelet: str = "db4") -> list[torch.Tensor]:
-    """Multi-level DWT of the last axis: [D1, D2, ..., D_level, A_level]."""
-    coeffs = []
-    cur = x
-    for _ in range(level):
-        cur, d = analysis_step(cur, wavelet)
-        coeffs.append(d)
-    coeffs.append(cur)
-    return coeffs
+    """Multi-level DWT of the last axis: [D1, D2, ..., D_level, A_level],
+    each scale its own contiguous tensor (one K2 launch on a CUDA tensor)."""
+    return wpd_ops.dwt_levels(x, *filters(wavelet), level)
 
 
 def idwt(coeffs: list[torch.Tensor], wavelet: str = "db4") -> torch.Tensor:
@@ -123,13 +119,6 @@ def idwt(coeffs: list[torch.Tensor], wavelet: str = "db4") -> torch.Tensor:
 def wpd(x: torch.Tensor, level: int, wavelet: str = "db4") -> torch.Tensor:
     """Wavelet packet decomposition: x (..., N) -> (..., 2**level,
     N // 2**level) terminal nodes in natural (Paley) order; every level
-    splits every node (node 2i is the low branch of node i, 2i+1 the
-    high one)."""
-    lead, n = x.shape[:-1], x.shape[-1]
-    if n % (2**level) != 0:
-        raise ValueError(f"signal length {n} not divisible by 2**{level}")
-    nodes = x.unsqueeze(-2)
-    for _ in range(level):
-        a, d = analysis_step(nodes, wavelet)
-        nodes = torch.stack([a, d], dim=-2).reshape(lead + (a.shape[-2] * 2, a.shape[-1]))
-    return nodes
+    splits every node (node 2i is the low branch of node i, 2i+1 the high
+    one). One K2 launch on a CUDA tensor."""
+    return wpd_ops.wpd_tree(x, *filters(wavelet), level)

@@ -1,5 +1,5 @@
-"""The port's kernel packages (K1 forest, K2 wpd_level, K3 gram, K4
-histogram) on the CPU.
+"""The port's kernel packages (K1 forest, K2 wpd_level with its one-launch
+packet tree and DWT, K3 gram, K4 histogram) on the CPU.
 
 Each plain PyTorch version is held to the JAX package's ``ref.py`` on the
 same numpy-seeded inputs; the CUDA kernels themselves run only on the
@@ -12,6 +12,8 @@ Tolerances:
   * wpd_level and gram: max abs <= 1e-5 * max|ref| and relative Frobenius
     <= 1e-5 -- both sides sum the same float32 products in a different
     order (taps, or the length-n contraction), a few ulps apart.
+  * wpd_tree and dwt_levels: the chained plain levels, held like one level
+    (each level's sums a few ulps from JAX's, carried into the next).
   * forest: the leaf one-hots are exact, and the sums over trees are
     taken in the same ascending order, so the summed probabilities agree
     to 1e-6 and the argmax is equal wherever the routing margin
@@ -26,10 +28,12 @@ Tolerances:
 from __future__ import annotations
 
 import ast
+import importlib.util
 import pathlib
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,6 +44,7 @@ from repro.kernels.gram import ref as jgram_ref
 from repro.kernels.histogram import kernel as jhist_kernel
 from repro.kernels.histogram import ops as jhist_ops
 from repro.kernels.histogram import ref as jhist_ref
+from repro.kernels.wpd import kernel as jwpd_kernel
 from repro.kernels.wpd import ref as jwpd_ref
 from repro.signal import wavelet as jwavelet
 from repro_torch.kernels.forest import kernel as forest_kernel
@@ -51,6 +56,7 @@ from repro_torch.kernels.histogram import kernel as hist_kernel
 from repro_torch.kernels.histogram import ops as hist_ops
 from repro_torch.kernels.wpd import kernel as wpd_kernel
 from repro_torch.kernels.wpd import ops as wpd_ops
+from repro_torch.serving import api
 from repro_torch.signal import wavelet
 
 # One intra-op thread: the suite runs in parallel workers on a shared
@@ -141,6 +147,71 @@ def test_forest_predict_proba_pads_features_and_averages():
     np.testing.assert_allclose(got.sum(-1), 1.0, atol=1e-6)
 
 
+def _walk_emulated(x, proj, thr, leaf):
+    """K1's walk over its derived tables, in float32 on the host: each row
+    starts at its tree's first live node and follows next_node until a
+    leaf, computing one column's dot product per step. Returns the summed
+    leaf rows (ascending tree order) and the steps taken per (row, tree)."""
+    proj_nodes = forest_kernel.node_major(torch.from_numpy(proj)).numpy()
+    nxt = forest_kernel.next_live(torch.from_numpy(thr)).numpy()
+    n_trees, n_leaves = thr.shape
+    rows = np.arange(x.shape[0])
+    total = np.zeros((x.shape[0], leaf.shape[-1]), np.float32)
+    steps = np.zeros((x.shape[0], n_trees), np.int64)
+    for t in range(n_trees):
+        node = np.full(x.shape[0], nxt[t, 0, 0])
+        while (node < n_leaves).any():
+            walking = node < n_leaves
+            at = np.minimum(node, n_leaves - 1)
+            v = np.einsum("bf,bf->b", x, proj_nodes[t, at])
+            nxt_at = nxt[t, at, (v > thr[t, at]).astype(np.int64)]
+            node = np.where(walking, nxt_at, node)
+            steps[:, t] += walking
+        total += leaf[t, node - n_leaves]
+    return total, steps
+
+
+@pytest.mark.parametrize("depth", [6])
+def test_forest_walk_tables_match_jax_ref(depth):
+    """K1's layout: the node-major proj and the next-live-node table, walked
+    as the kernel walks them, give the JAX reference's sums, on forests whose
+    dead nodes (40%) also sit above live ones; each walk computes exactly
+    the live nodes on its heap path."""
+    rng = np.random.default_rng(60 + depth)
+    proj, thr, leaf = _packed(rng, 5, 16, depth, dead_frac=0.4)
+    x = rng.normal(size=(41, 16)).astype(np.float32)
+    want = np.asarray(jforest_ref.forest_traverse(*map(jnp.asarray, (x, proj, thr, leaf))))
+    got, steps = _walk_emulated(x, proj, thr, leaf)
+    safe = _margins(x, proj, thr) > 1e-4
+    assert safe.mean() > 0.5
+    np.testing.assert_allclose(got[safe], want[safe], rtol=0, atol=1e-6)
+    vals = np.einsum("bf,tfl->tbl", x, proj)
+    for t in range(proj.shape[0]):  # live nodes on each row's heap path
+        node = np.ones(x.shape[0], np.int64)
+        live = np.zeros(x.shape[0], np.int64)
+        for _ in range(depth):
+            live += np.isfinite(thr[t, node])
+            node = 2 * node + (vals[t, np.arange(x.shape[0]), node] > thr[t, node])
+        np.testing.assert_array_equal(steps[safe, t], live[safe])
+
+
+def test_program_derives_walk_tables_and_saves_none(tmp_path):
+    """The tables K1 walks are derived where a program is loaded or moved,
+    and the checkpoint keeps the reference's leaves only."""
+    program = api.ScoringProgram.load(
+        str(ROOT / "src" / "repro_torch" / "assets" / "seizure_program"), device="cpu")
+    for p in (program, program.to("cpu")):
+        packed = p.packed
+        assert torch.equal(packed.proj_nodes, packed.proj.transpose(1, 2))
+        assert packed.next_node.dtype == torch.int32
+        assert packed.next_node.shape == packed.thr.shape + (2,)
+    assert set(program._to_arrays()) == {"proj", "thr", "leaf_probs", "feat_mean",
+                                         "feat_std", "cfg_json"}
+    program.save(str(tmp_path))
+    reloaded = api.ScoringProgram.load(str(tmp_path), device="cpu")
+    assert torch.equal(reloaded.packed.next_node, program.packed.next_node)
+
+
 # ---------------------------------------------------------------------------
 # K2 wpd_level
 # ---------------------------------------------------------------------------
@@ -166,6 +237,56 @@ def test_wpd_level_short_rows_wrap_fully():
     got_a, got_d = (v.numpy() for v in wpd_ops.wpd_level(torch.from_numpy(x), *wavelet.filters("db4")))
     _close(got_a, want_a, 1e-5)
     _close(got_d, want_d, 1e-5)
+
+
+@pytest.mark.parametrize("shape, level", [((7, 32), 4), ((2, 3, 64), 5)])
+def test_wpd_tree_and_dwt_levels_plain_match_jax(shape, level):
+    """The one-launch entries' plain versions against JAX's wpd and dwt;
+    rows of 32 end shorter than the filter (WPD nodes of 2, A4 of 2)."""
+    rng = np.random.default_rng(level)
+    x = rng.normal(size=shape).astype(np.float32)
+    h, g = wavelet.filters("db4")
+    jtree, jcoeffs = jax.jit(lambda v: (jwavelet.wpd(v, level), jwavelet.dwt(v, level)))(
+        jnp.asarray(x))
+    tree = wpd_ops.wpd_tree(torch.from_numpy(x), h, g, level)
+    assert tree.shape == shape[:-1] + (2**level, shape[-1] >> level)
+    _close(tree.numpy(), np.asarray(jtree), 1e-5)
+    coeffs = wpd_ops.dwt_levels(torch.from_numpy(x), h, g, level)
+    assert len(coeffs) == len(jcoeffs) == level + 1
+    for c, jc in zip(coeffs, jcoeffs):
+        _close(c.numpy(), np.asarray(jc), 1e-5)
+
+
+def test_wpd_tree_matches_pallas_interpret():
+    """The plain packet tree against the TPU kernel itself, chained level by
+    level in interpret mode as JAX's wpd(use_kernel=True) chains it."""
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(3, 16)).astype(np.float32)
+    jh, jg = jwavelet.filters("db4")
+    nodes = jnp.asarray(x)[:, None, :]
+    for _ in range(2):
+        a, d = jwpd_kernel.wpd_level(nodes.reshape(-1, nodes.shape[-1]), jh, jg, taps=8,
+                                     block_b=8, interpret=True)
+        lead = nodes.shape[:-1] + (-1,)
+        nodes = jnp.stack([a.reshape(lead), d.reshape(lead)], axis=-2).reshape(3, -1, a.shape[-1])
+    got = wpd_ops.wpd_tree(torch.from_numpy(x), *wavelet.filters("db4"), 2)
+    _close(got.numpy(), np.asarray(nodes), 1e-5)
+
+
+@pytest.mark.parametrize("rows, n, level", [(5760, 2048, 5), (7, 32, 4), (180, 2048, 1),
+                                            (3, 12288, 4)])
+def test_dwt_offsets_lay_scales_apart_and_aligned(rows, n, level):
+    """dwt_levels' one output: each scale 256-byte aligned and clear of the
+    next, and a scale written one place later still inside the allocation
+    (so tools/scoring_faults.py's misplaced detail stays in bounds)."""
+    off = wpd_kernel.dwt_offsets(rows, n, level)
+    sizes = [rows * (n >> min(j, level)) for j in range(1, level + 2)]
+    assert len(off) == level + 2 and off[0] == 0
+    for j, size in enumerate(sizes):
+        assert off[j] % wpd_kernel.ALIGN == 0
+        assert off[j] + size <= off[j + 1]
+    for j in range(level):
+        assert off[j + 1] + sizes[j] <= off[-1]
 
 
 # ---------------------------------------------------------------------------
@@ -325,11 +446,20 @@ def test_kernel_wrappers_refuse_cpu_tensors_without_counting():
     with pytest.raises(ValueError):
         wpd_kernel.wpd_level(x, *wavelet.filters("db4"))
     with pytest.raises(ValueError):
+        wpd_kernel.wpd_tree(x, *wavelet.filters("db4"), 2)
+    with pytest.raises(ValueError):
+        wpd_kernel.dwt_levels(x, *wavelet.filters("db4"), 2)
+    with pytest.raises(ValueError):
         gram_kernel.gram(x[None])
     with pytest.raises(ValueError):
         forest_kernel.forest_traverse(
-            x, torch.zeros(1, 16, 4), torch.zeros(1, 4), torch.zeros(1, 4, 2)
+            x, torch.zeros(1, 4, 16), torch.zeros(1, 4), torch.zeros(1, 4, 2, dtype=torch.int32),
+            torch.zeros(1, 4, 2),
         )
+    # A packed forest without its walk tables runs the plain version on the CPU.
+    proj, thr, leaf = torch.zeros(1, 16, 4), torch.zeros(1, 4), torch.zeros(1, 4, 2)
+    assert forest_ops.forest_predict_proba(forest_ops.PackedForest(proj, thr, leaf),
+                                           x).shape == (4, 2)
     codes = torch.zeros((1, 4, 16), dtype=torch.int32)
     with pytest.raises(ValueError):
         hist_kernel.class_histogram(codes, torch.zeros(1, 4, 2), 8)
@@ -338,6 +468,9 @@ def test_kernel_wrappers_refuse_cpu_tensors_without_counting():
     assert gram_ops.gram(x).shape == (16, 16)
     assert hist_ops.class_histogram(codes, torch.ones(1, 4, 2), 8).shape == (1, 16, 8, 2)
     assert wpd_ops.wpd_level(x, *wavelet.filters("db4"))[0].shape == (4, 8)
+    assert wpd_ops.wpd_tree(x, *wavelet.filters("db4"), 2).shape == (4, 4, 4)
+    assert [c.shape for c in wpd_ops.dwt_levels(x, *wavelet.filters("db4"), 2)] == [
+        (4, 8), (4, 4), (4, 4)]
 
 
 def test_kernel_library_is_keyed_by_the_sources():
@@ -348,6 +481,26 @@ def test_kernel_library_is_keyed_by_the_sources():
     assert path == build.library_path()
     assert {p.name for p in build._sources()} >= {"forest.cu", "gram.cu", "histogram.cu", "wpd_level.cu",
                                                   "flash_attention.cu", "ssd_chunks.cu"}
+
+
+def test_scoring_faults_edit_the_kernel_sources():
+    # tools/scoring_faults.py plants each K1 and K2 fault by a text edit of
+    # the kernel's source; every edit must find its text there exactly once.
+    spec = importlib.util.spec_from_file_location("scoring_faults",
+                                                  ROOT / "tools" / "scoring_faults.py")
+    faults = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(faults)
+    assert set(faults.FAULTS["wpd_level.cu"]) >= {
+        "none", "wrap_off_by_one", "paley_swapped", "stale_buffer", "detail_misplaced"}
+    assert set(faults.FAULTS["forest.cu"]) >= {
+        "none", "last_tree_dropped", "path_short", "lane_dropped"}
+    for source, table in faults.FAULTS.items():
+        text = (ROOT / "src" / "repro_torch" / "csrc" / source).read_text()
+        for name, (_, edits) in table.items():
+            assert bool(edits) == (name != "none")
+            for old, new in edits:
+                assert text.count(old) == 1, (source, name)
+                assert new != old
 
 
 # ---------------------------------------------------------------------------

@@ -138,6 +138,28 @@ def test_wpd_matches():
     _close(got.numpy(), want, 1e-5)
 
 
+def test_wpd_and_dwt_take_whole_trees_from_k2():
+    """wavelet.wpd and wavelet.dwt hand a whole tree to K2's one-launch
+    entries; on a CPU tensor those are the chained single level, so the
+    numbers are analysis_step's, level by level, to the bit, and each DWT
+    scale is its own contiguous tensor."""
+    rng = np.random.default_rng(9)
+    x = _t(rng.normal(size=(3, 128)))
+    nodes = x[:, None, :]
+    for _ in range(3):
+        a, d = wavelet.analysis_step(nodes)
+        nodes = torch.stack([a, d], dim=-2).reshape(3, -1, a.shape[-1])
+    assert torch.equal(wavelet.wpd(x, 3), nodes)
+    cur, want = x, []
+    for _ in range(4):
+        cur, d = wavelet.analysis_step(cur)
+        want.append(d)
+    got = wavelet.dwt(x, 4)
+    assert len(got) == 5
+    for c, w in zip(got, want + [cur]):
+        assert c.is_contiguous() and torch.equal(c, w)
+
+
 # ---------------------------------------------------------------------------
 # PCA (compared by reconstruction)
 # ---------------------------------------------------------------------------

@@ -7,6 +7,8 @@ Run from the root of a checkout, on one CUDA card:
     python3 tools/ab_kernels.py                      # this checkout
     python3 tools/ab_kernels.py --root path/to/other/checkout
     python3 tools/ab_kernels.py --hybrid [--root ...]
+    python3 tools/ab_kernels.py --scoring [--root ...]
+    python3 tools/ab_kernels.py --gate 0,1,2,3 [--root ...]
 
 The other checkout's ``src/repro_torch`` is imported (and its kernels
 built) in place of this one's; run the two in turns in separate processes
@@ -30,6 +32,26 @@ With --hybrid (K6 and the hybrid LM):
   where the port has them, its states and outputs modes at the static
   prefill's grouped shape (8 batch rows, 8 chunks of 256, 112 heads of 64);
 - one static prefill (8, 2048) of zamba2-7b.
+
+With --scoring (K1, K2 and the seizure paths they serve):
+
+- K1 at an engine step's x (1920, 288) on the committed program, through
+  ``ops.forest_predict_proba`` (as the engine calls it) and the kernel
+  launch alone;
+- K2 at an engine step's (5760, 2048): one level, and the step's packet
+  tree (level 4) and DWT (level 5) through ``signal.wavelet`` (the route the
+  main path takes: one launch each where the port has the one-launch
+  entries, else the chained single level with its stacks), each also at a
+  fit's (180, 2048);
+- ``features.wpd_features`` of one step (32 chunks of generated EEG; CUDA
+  events), ``mspca.denoise_windows`` of the same chunks and one engine step
+  (each the median of 5, synchronized wall), and the default MapReduce fit
+  over 2 shards of 16 + 16 chunks (median of 3), with K1's and K2's
+  launches in each.
+
+With --gate SEEDS, chip_smoke.py's training accuracy gate (the port-trained
+forest against the committed program on a held-out timeline, at most 0.05
+behind) on each seed's own draw of the training set and the timeline.
 
 A prefill line gives the median wall ms of 3 (synchronized; random bf16
 weights from --seed), then one profile: device busy ms, the kernel's ms and
@@ -179,12 +201,128 @@ def hybrid(label: str, seed: int) -> None:
     prefill_report(label, "zamba2-7b", seed, "ssd_chunk")
 
 
+def scoring(label: str, seed: int, root: Path) -> None:
+    import torch
+
+    from repro_torch.kernels.forest import kernel as fk, ops as fo
+    from repro_torch.kernels.wpd import kernel as wk
+    from repro_torch.serving import api
+    from repro_torch.signal import eeg_data, features, mspca, pipeline, wavelet
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    program = api.ScoringProgram.load(str(root / "src/repro_torch/assets/seizure_program"),
+                                      device="cuda").to("cuda")
+    packed = program.packed
+    x = torch.randn((1920, packed.proj.shape[1]), generator=gen, device="cuda")
+    # A port whose K1 walks derived tables takes them in place of proj.
+    args = ((x, packed.proj_nodes, packed.thr, packed.next_node, packed.leaf_probs)
+            if hasattr(packed, "next_node") else (x, packed.proj, packed.thr, packed.leaf_probs))
+    print(f"{label}: K1 x {tuple(x.shape)}: route (forest_predict_proba) "
+          f"{time_ms(lambda: fo.forest_predict_proba(packed, x)):.4f} ms, kernel launch "
+          f"{time_ms(lambda: fk.forest_traverse(*args)):.4f} ms", flush=True)
+    h, g = wavelet.filters("db4")
+    for rows in (5760, 180):
+        xr = torch.randn((rows, 2048), generator=gen, device="cuda")
+        print(f"{label}: K2 x ({rows}, 2048): one level {time_ms(lambda: wk.wpd_level(xr, h, g)):.4f}"
+              f" ms, packet tree L4 (wavelet.wpd) {time_ms(lambda: wavelet.wpd(xr, 4)):.4f} ms, "
+              f"DWT L5 (wavelet.dwt) {time_ms(lambda: wavelet.dwt(xr, 5)):.4f} ms", flush=True)
+
+    b, d, per = 8, 4, eeg_data.WINDOWS_PER_MATRIX
+    windows = eeg_data.generate_windows(gen, 3, eeg_data.INTERICTAL, b * d * per)
+    chunks = windows.reshape(b, d, per, *windows.shape[1:]).to("cuda")
+    flat = chunks.reshape(-1, *chunks.shape[2:])
+    state = api.init_state(b, program.cfg.alarm_m, device="cuda")
+    active = torch.ones((b, d), dtype=torch.int32, device="cuda")
+
+    def step():
+        return api._engine_step_megabatch(state, chunks, active, packed, program.feat_mean,
+                                          program.feat_std, cfg=program.cfg)
+
+    def launches(fn):
+        fk.LAUNCHES = wk.LAUNCHES = 0
+        fn()
+        torch.cuda.synchronize()
+        return f"K1 {fk.LAUNCHES}, K2 {wk.LAUNCHES}"
+
+    def wall_ms(fn, reps):
+        fn()
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(walls)
+
+    torch.linalg.eigh(torch.eye(8, device="cuda"))  # cuSOLVER's first call, outside the clock
+    for what, fn, how in (
+        (f"features.wpd_features ({flat.shape[0]} chunks)", lambda: features.wpd_features(flat),
+         "CUDA events, 5 calls, median of 5"),
+        (f"mspca.denoise_windows ({flat.shape[0]} chunks)", lambda: mspca.denoise_windows(flat),
+         "wall, median of 5"),
+        (f"engine step ({b} x {d} chunks)", step, "wall, median of 5"),
+    ):
+        ms = time_ms(fn, launches=5, reps=5) if how.startswith("CUDA") else wall_ms(fn, 5)
+        print(f"{label}: {what}: {ms:.3f} ms ({how}); launches {launches(fn)}", flush=True)
+
+    cfg = pipeline.PipelineConfig()
+    rec = eeg_data.stratify_chunks(eeg_data.make_training_set(
+        gen, 3, n_interictal_windows=16 * per, n_preictal_windows=16 * per))
+
+    def fit():
+        return pipeline.fit(gen, rec, cfg, n_shards=2)
+
+    print(f"{label}: default fit (2 shards of {rec.windows.shape[0] // 2} windows): "
+          f"{wall_ms(fit, 3) / 1e3:.3f} s (median of 3); launches {launches(fit)}", flush=True)
+
+
+def gate(label: str, seeds: list[int], root: Path) -> None:
+    """chip_smoke.py's training accuracy gate, on fresh draws: for each
+    seed, a generator seeded with it draws the training set (patient 3, 16
+    + 16 chunks), fits the default pipeline over 2 shards and draws a held-out
+    timeline (one interictal hour); the line gives the port-trained forest's
+    window accuracy on it, the committed JAX-trained program's, and the gap
+    (the gate fails above 0.05)."""
+    import torch
+
+    from repro_torch.serving import api
+    from repro_torch.signal import eeg_data, pipeline
+
+    committed = api.ScoringProgram.load(str(root / "src/repro_torch/assets/seizure_program"),
+                                        device="cuda")
+    cfg, per = pipeline.PipelineConfig(), eeg_data.WINDOWS_PER_MATRIX
+    gaps = []
+    for seed in seeds:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        rec = eeg_data.stratify_chunks(eeg_data.make_training_set(
+            gen, 3, n_interictal_windows=16 * per, n_preictal_windows=16 * per))
+        fitted = pipeline.fit(gen, rec, cfg, n_shards=2)
+        timeline = eeg_data.make_test_timeline(gen, 3, hours_interictal=1)
+        labels = timeline.labels.cpu()
+        acc = float((pipeline.evaluate_timeline(fitted, timeline, cfg).window_preds.cpu()
+                     == labels).float().mean())
+        ref = float((pipeline.evaluate_program(committed, timeline).window_preds.cpu()
+                     == labels).float().mean())
+        gaps.append(ref - acc)
+        print(f"{label}: gate seed {seed}: port-trained accuracy {acc:.4f}, committed "
+              f"{ref:.4f}, gap {ref - acc:+.4f}{' (over 0.05)' if ref - acc > 0.05 else ''}",
+              flush=True)
+    print(f"{label}: gate over {len(seeds)} seeds: gap mean {statistics.mean(gaps):+.4f}, "
+          f"max {max(gaps):+.4f}, {sum(gap > 0.05 for gap in gaps)} over 0.05", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default=None)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--hybrid", action="store_true", help="K6 and a zamba2-7b prefill")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--hybrid", action="store_true", help="K6 and a zamba2-7b prefill")
+    mode.add_argument("--scoring", action="store_true",
+                      help="K1, K2, the scoring stages, an engine step and a fit")
+    mode.add_argument("--gate", default=None, metavar="SEEDS",
+                      help="the training accuracy gate on the draws of these seeds (0,1,2)")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     label = args.label or root.name
@@ -198,7 +336,12 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"{label}: {smi}; port from {root / 'src' / 'repro_torch'}", flush=True)
-    (hybrid if args.hybrid else dense)(label, args.seed)
+    if args.scoring:
+        scoring(label, args.seed, root)
+    elif args.gate is not None:
+        gate(label, [int(v) for v in args.gate.split(",")], root)
+    else:
+        (hybrid if args.hybrid else dense)(label, args.seed)
     return 0
 
 
