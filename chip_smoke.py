@@ -45,10 +45,16 @@ Phases (any failure exits non-zero):
      features through the kernels may lie at most twice as far from the
      host CPU's features as the plain path's do (z-units, 99th and 99.9th
      percentile).
-     K4 must launch once per level and shard (12 times), and equal its
-     plain version exactly on the grower's 0/1 masses (and within 1e-5
-     relative on float weights), and on a 65536-bucket histogram built in
-     shared-memory slices.
+     K4 must launch once per level and shard (12 times); its level mode
+     (the grower's level_histogram, on feature-major uint8 codes) must
+     equal its plain version exactly on the fit's own 0/1 weights at every
+     level (and within 1e-5 relative on float weights); its class mode
+     (the TPU kernel's contract) likewise at levels 0 and 5 and on a
+     65536-bucket histogram built in shared-memory slices; the level mode
+     also off the fit's shapes (N off the pass and 16-byte grids, a short
+     feature group, 66-float output rows, int32 codes). A profile of
+     one grower call gives its device busy and idle share and its largest
+     operations.
      The fit is checkpointed, reloaded and served on a held-out timeline
      (1 h interictal, the 48-minute run-up, the seizure) pushed 37
      windows at a time; the served alarms must equal
@@ -349,18 +355,20 @@ def plain_versions():
         return fr.forest_traverse(x, proj_nodes.transpose(1, 2).contiguous(), thr, leaf_probs)
 
     saved = (fk.forest_traverse, gk.gram, wk.wpd_level, wk.wpd_tree, wk.dwt_levels,
-             hk.class_histogram, ak.flash_attention, sk.ssd_chunks, sk.ssd_chunk_states,
-             sk.ssd_chunk_outputs)
+             hk.class_histogram, hk.level_histogram, ak.flash_attention, sk.ssd_chunks,
+             sk.ssd_chunk_states, sk.ssd_chunk_outputs)
     (fk.forest_traverse, gk.gram, wk.wpd_level, wk.wpd_tree, wk.dwt_levels, hk.class_histogram,
-     ak.flash_attention, sk.ssd_chunks, sk.ssd_chunk_states, sk.ssd_chunk_outputs) = (
+     hk.level_histogram, ak.flash_attention, sk.ssd_chunks, sk.ssd_chunk_states,
+     sk.ssd_chunk_outputs) = (
         forest_plain, gr.gram, wr.wpd_level, wr.wpd_tree, wr.dwt_levels, hr.class_histogram,
-        ao.reference, sr.ssd_chunks, sr.ssd_chunk_states, sr.ssd_chunk_outputs)
+        hr.level_histogram, ao.reference, sr.ssd_chunks, sr.ssd_chunk_states,
+        sr.ssd_chunk_outputs)
     try:
         yield
     finally:
         (fk.forest_traverse, gk.gram, wk.wpd_level, wk.wpd_tree, wk.dwt_levels,
-         hk.class_histogram, ak.flash_attention, sk.ssd_chunks, sk.ssd_chunk_states,
-         sk.ssd_chunk_outputs) = saved
+         hk.class_histogram, hk.level_histogram, ak.flash_attention, sk.ssd_chunks,
+         sk.ssd_chunk_states, sk.ssd_chunk_outputs) = saved
 
 
 def _kernel_modules() -> dict:
@@ -970,8 +978,8 @@ def trace_step(program, traffic) -> None:
 @contextlib.contextmanager
 def stage_clock(stages: dict, owner, name: str, label: str, hook=None):
     """Add the synchronized wall time of every call of ``owner.name`` to
-    ``stages[label]`` for the duration (``hook(args)`` sees each call's
-    arguments)."""
+    ``stages[label]`` for the duration (``hook(args, kwargs)`` sees each
+    call's arguments)."""
     import torch
 
     fn = getattr(owner, name)
@@ -979,7 +987,7 @@ def stage_clock(stages: dict, owner, name: str, label: str, hook=None):
 
     def timed(*args, **kwargs):
         if hook is not None:
-            hook(args)
+            hook(args, kwargs)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
@@ -1006,9 +1014,10 @@ def training_set(gen):
 
 def timed_fit(gen, rec, cfg):
     """One MapReduce fit with its stage times (seconds) and the kernels'
-    inputs as the fit handed them over: {"histogram": {n_buckets: (codes,
-    wy)}, "wpd_tree" and "dwt_levels": {(shape, level): x}, "gram": {shape:
-    x}}, the last call per bucket count and the first per shape."""
+    inputs as the fit handed them over: {"histogram": {level: (codes,
+    local, y, w, kwargs)}, "wpd_tree" and "dwt_levels": {(shape, level):
+    x}, "gram": {shape: x}, "grower": {"call": (args, kwargs)}}, the last
+    call per level and grower call, the first per shape."""
     import torch
 
     from repro_torch.core import decision_tree as dt
@@ -1020,10 +1029,11 @@ def timed_fit(gen, rec, cfg):
     from repro_torch.signal import pipeline
 
     stages: dict[str, float] = {}
-    captured: dict[str, dict] = {"histogram": {}, "wpd_tree": {}, "dwt_levels": {}, "gram": {}}
+    captured: dict[str, dict] = {"histogram": {}, "wpd_tree": {}, "dwt_levels": {}, "gram": {},
+                                 "grower": {}}
 
     def k2_hook(kind):
-        def capture(a):
+        def capture(a, _):
             rows = a[0].reshape(-1, a[0].shape[-1])
             captured[kind].setdefault((tuple(rows.shape), a[3]), rows)
         return capture
@@ -1035,13 +1045,15 @@ def timed_fit(gen, rec, cfg):
             (wk, "wpd_tree", "of which K2 (WPD trees and DWTs)", k2_hook("wpd_tree")),
             (wk, "dwt_levels", "of which K2 (WPD trees and DWTs)", k2_hook("dwt_levels")),
             (gk, "gram", "of which K3 gram (MSPCA covariances)",
-             lambda a: captured["gram"].setdefault(tuple(a[0].shape), a[0])),
+             lambda a, _: captured["gram"].setdefault(tuple(a[0].shape), a[0])),
             (rf, "_prepare_trees", "tree prep (rotation, x @ R, binning)", None),
             (rf, "_build_rotation", "of which rotation", None),
             (rf, "_block_components", "of which rotation eigh", None),
-            (dt, "fit_forest_binned", "grower", None),
-            (hist_ops, "class_histogram", "of which K4 histogram",
-             lambda a: captured["histogram"].__setitem__(a[2], (a[0], a[1]))),
+            (dt, "fit_forest_binned", "grower",
+             lambda a, kw: captured["grower"].__setitem__("call", (a, kw))),
+            (hist_ops, "level_histogram", "of which K4 histogram (one launch a level)",
+             lambda a, kw: captured["histogram"].__setitem__(
+                 kw["nodes_at"].bit_length() - 1, (*a, kw))),
         ):
             stack.enter_context(stage_clock(stages, owner, name, label, hook))
         torch.cuda.synchronize()
@@ -1108,34 +1120,165 @@ def check_fit_features(captured, rec, cfg) -> None:
                  f"{z['plain vs CPU'][q]}")
 
 
+def level_check(inputs, gen) -> tuple[float, float]:
+    """K4's level mode on one grower level's inputs (codes, local, y, w,
+    kwargs) against its plain version: (max abs error on the level's 0/1
+    weights, which must be 0; relative error on random float weights drawn
+    from ``gen``, which must be at most 1e-5)."""
+    import torch
+
+    from repro_torch.kernels.histogram import kernel as hk, ref as hr
+
+    codes, local, y, w, kw = inputs
+    wf = torch.rand(w.shape, generator=gen, device=w.device)
+    got, got_f = (hk.level_histogram(codes, local, y, v, **kw) for v in (w, wf))
+    want, want_f = (hr.level_histogram(codes, local, y, v, **kw) for v in (w, wf))
+    torch.cuda.synchronize()
+    return (float((got - want).abs().max()),
+            float((got_f - want_f).abs().max() / want_f.abs().max()))
+
+
+def class_check(codes, wy, n_buckets, gen) -> tuple[float, float]:
+    """K4's class mode (the TPU kernel's contract) against its plain
+    version: (max abs error on the masses wy, 0 required where they are
+    0/1; relative error on random float masses from ``gen``, 1e-5)."""
+    import torch
+
+    from repro_torch.kernels.histogram import kernel as hk, ref as hr
+
+    got, want = (m.class_histogram(codes, wy, n_buckets) for m in (hk, hr))
+    wf = torch.rand(wy.shape, generator=gen, device=wy.device)
+    got_f, want_f = (m.class_histogram(codes, wf, n_buckets) for m in (hk, hr))
+    torch.cuda.synchronize()
+    return (float((got - want).abs().max()),
+            float((got_f - want_f).abs().max() / want_f.abs().max()))
+
+
+def sliced_case(gen) -> tuple:
+    """Beyond one block's shared memory: a depth-12 grower's deepest level
+    at 32 bins (65536 buckets x 2 classes = 512 KB) is built in bucket
+    slices. 16 features keep the output at 42 MB. (codes, wy, n_buckets)."""
+    import torch
+
+    t, n, f, nb = 5, 960, 16, 65536
+    codes = torch.randint(-1, nb + 1, (t, n, f), generator=gen, device=gen.device,
+                          dtype=torch.int32)
+    boot = (torch.rand((t, n, 1), generator=gen, device=gen.device) < 0.632).float()
+    label = torch.randint(0, 2, (n,), generator=gen, device=gen.device)
+    return codes, boot * torch.nn.functional.one_hot(label, 2).float(), nb
+
+
+def ragged_level_cases(gen) -> dict[str, tuple]:
+    """K4's level mode off the fit's shapes, on random grower inputs (0/1
+    weights): N neither a multiple of 16 nor of a pass (codes read without
+    16-byte loads, in three passes), 37 features (a short last group), and
+    33 buckets of 2 classes (an output row of 66 floats, written without
+    16-byte stores); and int32 codes at 300 bins in two passes, one
+    feature a block. {label: (codes, local, y, w, kwargs)}."""
+    import torch
+
+    cases = {}
+    for t, n, f, nodes_at, n_bins, dtype in ((3, 2500, 37, 1, 33, torch.uint8),
+                                             (3, 1040, 37, 8, 300, torch.int32)):
+        dev = gen.device
+        codes = torch.randint(0, n_bins, (t, f, n), generator=gen, device=dev).to(dtype)
+        local = torch.randint(0, nodes_at, (t, n), generator=gen, device=dev, dtype=torch.int32)
+        y = torch.randint(0, 2, (n,), generator=gen, device=dev, dtype=torch.int32)
+        w = (torch.rand((t, n), generator=gen, device=dev) < 0.75).float()
+        kw = dict(nodes_at=nodes_at, n_bins=n_bins, n_classes=2)
+        label = f"{str(dtype).split('.')[1]} codes {(t, f, n)}, {nodes_at * n_bins} buckets"
+        cases[label] = (codes, local, y, w, kw)
+    return cases
+
+
+def class_inputs(inputs) -> tuple:
+    """The TPU kernel's inputs for one grower level: the (T, N, F) int32
+    bucket ids local * n_bins + bin and the masses w * onehot(y)."""
+    import torch
+
+    codes, local, y, w, kw = inputs
+    ids = local[:, :, None] * kw["n_bins"] + codes.transpose(1, 2).to(torch.int32)
+    wy = w[..., None] * torch.nn.functional.one_hot(y.long(), kw["n_classes"]).float()
+    return ids.contiguous(), wy.contiguous(), kw["nodes_at"] * kw["n_bins"]
+
+
 def check_histogram(captured, gen) -> dict[str, dict]:
-    """K4 against its plain version on the grower's own level-0 and
-    deepest-level inputs: exact on its 0/1 masses, within 1e-5 relative on
-    random float weights."""
+    """K4 against its plain versions. The level mode, as the grower calls
+    it, on the fit's own inputs at every level: exact on its 0/1 weights,
+    within 1e-5 relative on random float weights; each level timed beside
+    its plain version, its bound and the library call (the bucket ids
+    computed, then one ``index_put_`` accumulate: the scatter of the class
+    mode's yardstick). The class mode (the TPU kernel's contract) on the
+    same levels' bucket ids and masses at levels 0 and 5, likewise, and on
+    a 65536-bucket histogram built in shared-memory slices. The level mode
+    also on ``ragged_level_cases``."""
     import torch
 
     from repro_torch.kernels.histogram import kernel as hk, ref as hr
 
     rows = {}
-    for n_buckets in (max(captured), min(captured)):
-        codes, wy = (v.contiguous() for v in captured[n_buckets])
-        t, n, f = codes.shape
-        c = wy.shape[-1]
-        got, want = hk.class_histogram(codes, wy, n_buckets), hr.class_histogram(codes, wy, n_buckets)
-        wf = torch.rand(wy.shape, generator=gen, device=wy.device)
-        got_f, want_f = hk.class_histogram(codes, wf, n_buckets), hr.class_histogram(codes, wf, n_buckets)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        rel_f = float((got_f - want_f).abs().max() / want_f.abs().max())
+    # The float weights of the level mode and its ragged cases come from a
+    # generator of their own: the class mode's draws from gen below are the
+    # ones this phase has always made, so the held-out timeline drawn after
+    # it stays the draw it was.
+    extra = torch.Generator(device=gen.device).manual_seed(SEED + 2)
+    for label, inputs in ragged_level_cases(extra).items():
+        err, rel_f = level_check(inputs, extra)
+        print(f"kernel histogram/{label}: max_abs_err {err:.3e} (tol 0); float weights: "
+              f"relative error {rel_f:.2e} (tol 1e-5)")
+        if err != 0.0 or not rel_f <= 1e-5:
+            fail(f"histogram kernel ({label}) differs from its plain version: {err} on 0/1 "
+                 f"weights, relative {rel_f} on float weights")
+    for level in sorted(captured):
+        codes, local, y, w, kw = inputs = captured[level]
+        err, rel_f = level_check(inputs, extra)
         if err != 0.0:
-            fail(f"histogram kernel ({n_buckets} buckets) differs from its plain version "
+            fail(f"histogram kernel (level {level}) differs from its plain version on the "
+                 f"fit's 0/1 weights by {err}")
+        if not rel_f <= 1e-5:
+            fail(f"histogram kernel (level {level}) on float weights: relative error "
+                 f"{rel_f} > 1e-5")
+        (t, f, n), c = codes.shape, kw["n_classes"]
+        nb = kw["nodes_at"] * kw["n_bins"]
+        dev = codes.device
+        trees = torch.arange(t, device=dev)[:, None, None]
+        feats = torch.arange(f, device=dev)[:, None]
+
+        def library():
+            ids = local.long()[:, None, :] * kw["n_bins"] + codes.long()
+            return torch.zeros((t, f, nb, c), device=dev).index_put_(
+                (trees, feats, ids, y.long()), w[:, None, :].expand(t, f, n), accumulate=True)
+
+        if not torch.equal(library(), hr.level_histogram(codes, local, y, w, **kw)):
+            fail(f"index_put_ yardstick disagrees with the plain level histogram (level {level})")
+        # Bytes: codes, local, y and w read once, the histogram written once;
+        # one add per live (sample, feature).
+        live = int((w != 0).sum())
+        b_ms, b_by = bound_ms(
+            codes.numel() * codes.element_size() + 4 * (local.numel() + y.numel() + w.numel())
+            + 4 * t * f * nb * c, 1.0 * live * f)
+        rows[f"histogram/L{level} {nb}"] = dict(
+            shape=f"codes {tuple(codes.shape)} {str(codes.dtype).split('.')[1]}, local "
+                  f"{tuple(local.shape)}, {nb} buckets x {c} classes",
+            max_abs_err=err, tol=0.0,
+            note=f"float weights: relative error {rel_f:.2e} (tol 1e-5); {live} live samples",
+            ms=time_ms(lambda: hk.level_histogram(codes, local, y, w, **kw)),
+            plain_ms=time_ms(lambda: hr.level_histogram(codes, local, y, w, **kw)),
+            library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by,
+        )
+    for level in (max(captured), min(captured)):
+        codes, wy, nb = class_inputs(captured[level])
+        (t, n, f), c = codes.shape, wy.shape[-1]
+        err, rel_f = class_check(codes, wy, nb, gen)
+        if err != 0.0:
+            fail(f"class_histogram kernel ({nb} buckets) differs from its plain version "
                  f"on 0/1 masses by {err}")
         if not rel_f <= 1e-5:
-            fail(f"histogram kernel ({n_buckets} buckets) on float weights: relative "
+            fail(f"class_histogram kernel ({nb} buckets) on float weights: relative "
                  f"error {rel_f} > 1e-5")
         # The library yardstick: one index_put_ accumulate of the same
         # scatter (out-of-range codes to a spill bucket).
-        safe = torch.where((codes >= 0) & (codes < n_buckets), codes, n_buckets).long()
+        safe = torch.where((codes >= 0) & (codes < nb), codes, nb).long()
         dev = codes.device
         index = (torch.arange(t, device=dev)[:, None, None, None],
                  torch.arange(f, device=dev)[None, None, :, None],
@@ -1143,40 +1286,52 @@ def check_histogram(captured, gen) -> dict[str, dict]:
         values = wy[:, :, None, :].expand(t, n, f, c)
 
         def library():
-            return torch.zeros((t, f, n_buckets + 1, c), device=dev).index_put_(
+            return torch.zeros((t, f, nb + 1, c), device=dev).index_put_(
                 index, values, accumulate=True)
 
-        lib = library()[:, :, :n_buckets]
-        if not torch.equal(lib, want):
+        if not torch.equal(library()[:, :, :nb], hr.class_histogram(codes, wy, nb)):
             fail("index_put_ yardstick disagrees with the plain histogram")
         # Bytes: codes and wy read once, the histogram written once; one add
         # per sample, feature and class.
-        b_ms, b_by = bound_ms(4 * (codes.numel() + wy.numel() + t * f * n_buckets * c),
+        b_ms, b_by = bound_ms(4 * (codes.numel() + wy.numel() + t * f * nb * c),
                               1.0 * codes.numel() * c)
-        rows[f"histogram/{n_buckets}"] = dict(
-            shape=f"codes {tuple(codes.shape)}, wy {tuple(wy.shape)}, {n_buckets} buckets",
+        rows[f"class_histogram/L{level} {nb}"] = dict(
+            shape=f"codes {tuple(codes.shape)}, wy {tuple(wy.shape)}, {nb} buckets",
             max_abs_err=err, tol=0.0,
             note=f"float weights: relative error {rel_f:.2e} (tol 1e-5)",
-            ms=time_ms(lambda: hk.class_histogram(codes, wy, n_buckets)),
-            plain_ms=time_ms(lambda: hr.class_histogram(codes, wy, n_buckets)),
+            ms=time_ms(lambda: hk.class_histogram(codes, wy, nb)),
+            plain_ms=time_ms(lambda: hr.class_histogram(codes, wy, nb)),
             library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by,
         )
-    # Beyond one block's shared memory: a depth-12 grower's deepest level
-    # at 32 bins (65536 buckets x 2 classes = 512 KB) is built in bucket
-    # slices. 16 features keep the output at 42 MB.
-    t, n, f, nb = 5, 960, 16, 65536
-    codes = torch.randint(-1, nb + 1, (t, n, f), generator=gen, device=gen.device,
-                          dtype=torch.int32)
-    boot = (torch.rand((t, n, 1), generator=gen, device=gen.device) < 0.632).float()
-    label = torch.randint(0, 2, (n,), generator=gen, device=gen.device)
-    wy = boot * torch.nn.functional.one_hot(label, 2).float()
+    codes, wy, nb = sliced_case(gen)
     err = float((hk.class_histogram(codes, wy, nb) - hr.class_histogram(codes, wy, nb)).abs().max())
-    print(f"kernel histogram/{nb}: codes {(t, n, f)}, in bucket slices: max_abs_err {err:.3e} "
-          "(tol 0)")
+    print(f"kernel class_histogram/{nb}: codes {tuple(codes.shape)}, in bucket slices: "
+          f"max_abs_err {err:.3e} (tol 0)")
     if err != 0.0:
-        fail(f"histogram kernel ({nb} buckets, sliced) differs from its plain version by {err}")
+        fail(f"class_histogram kernel ({nb} buckets, sliced) differs from its plain version "
+             f"by {err}")
     print_kernel_rows(rows)
     return rows
+
+
+def trace_grower(captured) -> None:
+    """Device busy and idle share of one ``fit_forest_binned`` call (the
+    fit's last, replayed on its own inputs), and its largest operations."""
+    from repro_torch.core import decision_tree as dt
+
+    args, kwargs = captured["call"]
+    wall_ms, busy_ms, by_name = device_activity(lambda: dt.fit_forest_binned(*args, **kwargs),
+                                                "grower_trace")
+    if busy_ms is None:
+        print(f"trace one grower call: {wall_ms:.3f} ms wall; the profiler recorded no device "
+              "activity: busy and idle share not measured")
+        return
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    top = "; ".join(f"{ms:.3f} ms in {n}: {name[:60]}" for name, (ms, n) in ranked[:6])
+    print(f"trace one grower call (fit_forest_binned, xb {tuple(args[0].shape)}): {wall_ms:.3f} "
+          f"ms wall (profiler on), device busy {busy_ms:.3f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.4f}, {sum(n for _, n in by_name.values())} device "
+          f"activities; largest: {top}")
 
 
 def serve_timeline(engine, patient, windows, lo, hi) -> list:
@@ -1231,6 +1386,7 @@ def training_phase(gen, committed) -> tuple[dict, dict]:
         fail(f"union forest has {fitted.forest.rotation.shape[0]} trees")
     check_fit_features(captured, rec, cfg)
     rows = check_histogram(captured["histogram"], gen)
+    trace_grower(captured["grower"])
 
     # Checkpoint, reload, serve a held-out timeline.
     with tempfile.TemporaryDirectory(prefix="seizure_program_") as directory:
@@ -2175,7 +2331,8 @@ def main() -> int:
     }
     # K2's row: the step's packet tree, the larger of its two launches a step.
     main_rows = {"forest": "forest", "wpd_level": "wpd_tree/5760x2048 L4", "gram": "gram/1024x180",
-                 "histogram": f"histogram/{max(int(k.split('/')[1]) for k in hist_rows)}",
+                 "histogram": max((k for k in hist_rows if k.startswith("histogram/")),
+                                  key=lambda k: int(k.split()[-1])),
                  "flash_attention": next(iter(flash_rows)), "ssd_chunks": next(iter(ssd_rows))}
     line = {"kernels": [
         {

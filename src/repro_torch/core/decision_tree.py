@@ -9,10 +9,11 @@ comes from a weighted class histogram of the whole level.
     per-tree oracle.
   * ``fit_forest_binned`` -- all T trees at once over (T, N, F) codes: one
     (T, F, nodes * bins, C) histogram per level through the K4 kernel
-    (``kernels.histogram.ops.level_histogram``), one argmax, one routing
-    step. Equal to T ``fit_binned`` fits: the bootstrap masses are 0/1, so
-    every histogram entry is an exact integer in either form, and the
-    split choice runs the same ops on it.
+    (``kernels.histogram.ops.level_histogram``, on the codes laid out
+    feature-major once per fit), one argmax, one routing step. Equal to T
+    ``fit_binned`` fits: the bootstrap masses are 0/1, so every histogram
+    entry is an exact integer in either form, and the split choice runs
+    the same ops on it.
 
 Ties between candidate splits are common with integer counts. Both
 argmaxes take the FIRST maximum over the gains flattened feature-major
@@ -203,14 +204,18 @@ def fit_forest_binned(
     y  : (N,) integer labels, shared by every tree.
     w  : (T, N) float32 per-tree sample weights.
 
-    Each level's histogram over every tree, feature, node and bin is ONE
-    call of ``level_histogram`` (K4 on a CUDA tensor), so a fit launches
-    the kernel ``depth`` times. Returns ``TreeParams`` with a leading T
-    axis on every field.
+    The codes are laid out feature-major, (T, F, N) in the narrowest type
+    (uint8 up to 256 bins), once per fit. Each level's histogram over every
+    tree, feature, node and bin is then ONE call of ``level_histogram`` on
+    them and the level's node-local ids (K4 on a CUDA tensor, which computes
+    the bucket ids itself), so a fit launches the kernel ``depth`` times.
+    Returns ``TreeParams`` with a leading T axis on every field.
     """
     t, n, f = xb.shape
     dev = xb.device
-    w = w.to(torch.float32)
+    w = w.to(torch.float32).contiguous()
+    y32 = y.to(torch.int32).contiguous()
+    codes = hist_ops.feature_major(xb, n_bins)
     split_feature = torch.full((t, 2**depth), -1, dtype=torch.int32, device=dev)
     split_bin = torch.full((t, 2**depth), n_bins, dtype=torch.int32, device=dev)
     assignment = torch.ones((t, n), dtype=torch.int32, device=dev)
@@ -219,7 +224,7 @@ def fit_forest_binned(
         nodes_at = 2**level
         local = assignment - nodes_at  # (T, N) in [0, nodes_at)
         hist = hist_ops.level_histogram(
-            xb, local, y, w, nodes_at=nodes_at, n_bins=n_bins, n_classes=n_classes
+            codes, local, y32, w, nodes_at=nodes_at, n_bins=n_bins, n_classes=n_classes
         )
         best_feat, best_bin = _choose_splits(
             hist.reshape(t, f, nodes_at, n_bins, n_classes),

@@ -30,12 +30,15 @@ class RotationForestConfig(NamedTuple):
 
     ``use_hist_kernel`` is kept because a program's ``cfg_json`` carries
     it; in the port it selects nothing. The grower's histogram always goes
-    through ``kernels.histogram.ops`` (the K4 kernel on a CUDA tensor, the
-    plain scatter on a CPU tensor), and every form of that histogram is
-    exact here: ``w`` is a 0/1 bootstrap mask and ``wy = w * onehot(y)``
-    is 0/1, so each entry is an integer below 2**24, and the kernel, the
-    scatter and both of the reference's forms agree bit for bit whatever
-    their summation order (``tests/test_torch_training.py`` pins it)."""
+    through ``kernels.histogram.ops.level_histogram`` (K4's level mode on
+    a CUDA tensor, the plain scatter on a CPU tensor), and every form of
+    that histogram is exact here: ``w`` is a 0/1 bootstrap mask, so each
+    entry is an integer below 2**24, and K4's level and class modes, the
+    port's plain scatters and both of the reference's forms (its scatter
+    and its Pallas kernel, ``use_hist_kernel``) agree bit for bit whatever
+    their summation order (``tests/test_torch_kernels.py`` and
+    ``tests/test_torch_training.py`` pin it on the CPU, ``chip_smoke.py``
+    on the card)."""
 
     n_trees: int = 10
     n_subsets: int = 3          # K in the paper

@@ -415,24 +415,51 @@ def test_class_histogram_plain_matches_jax(t, n, f, n_buckets, masses):
         _close(got, want_kernel, 1e-6)
 
 
-def test_level_histogram_matches_jax():
-    """The grower-shaped wrapper: codes = local * n_bins + bin and
-    wy = w * onehot(y), on a 0/1 bootstrap mask (exact)."""
-    rng = np.random.default_rng(12)
-    t, n, f, nodes_at, n_bins, n_classes = 3, 300, 6, 4, 8, 3
+def _level_inputs(seed, t, n, f, nodes_at, n_bins, n_classes, masses):
+    rng = np.random.default_rng(seed)
     xb = rng.integers(0, n_bins, size=(t, n, f)).astype(np.int32)
     local = rng.integers(0, nodes_at, size=(t, n)).astype(np.int32)
     y = rng.integers(0, n_classes, size=n).astype(np.int32)
-    w = (rng.random((t, n)) < 0.75).astype(np.float32)
+    if masses == "01":
+        w = (rng.random((t, n)) < 0.75).astype(np.float32)
+    else:
+        w = rng.random((t, n)).astype(np.float32)
+    return xb, local, y, w
+
+
+def _level_pair(xb, local, y, w, **kw):
+    """(port, JAX): the port's level_histogram on the feature-major codes
+    and the reference's ``level_histogram(use_pallas=False)`` on (T, N, F)."""
     want = np.asarray(jhist_ops.level_histogram(
-        *map(jnp.asarray, (xb, local, y, w)), nodes_at=nodes_at, n_bins=n_bins,
-        n_classes=n_classes, use_pallas=False,
-    ))
-    got = hist_ops.level_histogram(
-        *map(torch.from_numpy, (xb, local, y, w)), nodes_at=nodes_at, n_bins=n_bins,
-        n_classes=n_classes,
-    ).numpy()
-    np.testing.assert_array_equal(got, want)
+        *map(jnp.asarray, (xb, local, y, w)), use_pallas=False, **kw))
+    codes = hist_ops.feature_major(torch.from_numpy(xb), kw["n_bins"])
+    got = hist_ops.level_histogram(codes, *map(torch.from_numpy, (local, y, w)), **kw)
+    return got, want
+
+
+def test_level_histogram_matches_jax():
+    """The grower's level: bucket = local * n_bins + bin and mass
+    w * onehot(y), on a 0/1 bootstrap mask (exact)."""
+    kw = dict(nodes_at=4, n_bins=8, n_classes=3)
+    got, want = _level_pair(*_level_inputs(12, 3, 300, 6, masses="01", **kw), **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("masses", ["01", "float"])
+@pytest.mark.parametrize("n_bins,n,dtype", [(32, 300, torch.uint8), (300, 517, torch.int32)])
+def test_level_histogram_feature_major_matches_jax(n_bins, n, dtype, masses):
+    """The plain fused level on feature-major codes of the narrowest type
+    (uint8 up to 256 bins, int32 above), N ragged against 256: exact on 0/1
+    masses, within 1e-6 relative on float weights."""
+    kw = dict(nodes_at=4, n_bins=n_bins, n_classes=2)
+    inputs = _level_inputs(n_bins + n, 2, n, 5, masses=masses, **kw)
+    assert hist_ops.feature_major(torch.from_numpy(inputs[0]), n_bins).dtype == dtype
+    got, want = _level_pair(*inputs, **kw)
+    assert got.shape == (2, 5, 4 * n_bins, 2) and got.dtype == torch.float32
+    if masses == "01":
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        _close(got.numpy(), want, 1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -463,10 +490,19 @@ def test_kernel_wrappers_refuse_cpu_tensors_without_counting():
     codes = torch.zeros((1, 4, 16), dtype=torch.int32)
     with pytest.raises(ValueError):
         hist_kernel.class_histogram(codes, torch.zeros(1, 4, 2), 8)
+    # K4's level mode: feature-major codes (1, 16, 4), uint8 or int32 only.
+    level = dict(nodes_at=1, n_bins=8, n_classes=2)
+    grower = (torch.zeros((1, 4), dtype=torch.int32), torch.zeros(4, dtype=torch.int32),
+              torch.ones(1, 4))
+    for dtype in (torch.uint8, torch.int32, torch.int16, torch.int64):
+        with pytest.raises(ValueError):
+            hist_kernel.level_histogram(torch.zeros((1, 16, 4), dtype=dtype), *grower, **level)
     assert tuple(k.LAUNCHES for k in kernels) == counts
     # The ops route the same CPU tensors to the plain versions.
     assert gram_ops.gram(x).shape == (16, 16)
     assert hist_ops.class_histogram(codes, torch.ones(1, 4, 2), 8).shape == (1, 16, 8, 2)
+    assert hist_ops.level_histogram(torch.zeros((1, 16, 4), dtype=torch.uint8), *grower,
+                                    **level).shape == (1, 16, 8, 2)
     assert wpd_ops.wpd_level(x, *wavelet.filters("db4"))[0].shape == (4, 8)
     assert wpd_ops.wpd_tree(x, *wavelet.filters("db4"), 2).shape == (4, 4, 4)
     assert [c.shape for c in wpd_ops.dwt_levels(x, *wavelet.filters("db4"), 2)] == [
@@ -503,13 +539,39 @@ def test_scoring_faults_edit_the_kernel_sources():
                 assert new != old
 
 
+def test_histogram_faults_edit_the_kernel_source():
+    # tools/histogram_faults.py plants each K4 fault, and builds each other
+    # design it times, by text edits of the kernel's source; every edit must
+    # find its text there exactly once.
+    spec = importlib.util.spec_from_file_location("histogram_faults",
+                                                  ROOT / "tools" / "histogram_faults.py")
+    faults = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(faults)
+    assert set(faults.FAULTS) >= {"none", "node_off_by_one", "copy_left_out",
+                                  "no_merge_barrier", "stride_tail_dropped", "group_stride"}
+    assert set(faults.ALTERNATIVES) >= {"match_any"}
+    text = (ROOT / "src" / "repro_torch" / "csrc" / faults.SOURCE).read_text()
+    for name, (_, edits) in {**faults.FAULTS, **faults.ALTERNATIVES}.items():
+        assert bool(edits) == (name != "none")
+        for old, new in edits:
+            assert text.count(old) == 1, name
+            assert new != old
+
+
 # ---------------------------------------------------------------------------
 # The port imports no JAX and nothing of the JAX package
 # ---------------------------------------------------------------------------
 
+# Tools that hold the port against the JAX package on the CPU, as the tests
+# do: not part of the port, never run on the card.
+CPU_REFERENCE_TOOLS = ("gate_reference.py",)
+
+
 def _port_files():
+    assert all((ROOT / "tools" / name).is_file() for name in CPU_REFERENCE_TOOLS)
     return (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-            + sorted((ROOT / "tools").glob("*.py")))
+            + sorted(p for p in (ROOT / "tools").glob("*.py")
+                     if p.name not in CPU_REFERENCE_TOOLS))
 
 
 def test_no_repro_imports_in_port_sources():

@@ -192,6 +192,24 @@ def test_grower_splits_equal_jax(grown):
             assert torch.equal(a, b[i])
 
 
+def test_grower_int32_codes_equal_jax(grown):
+    """Above 256 bins the grower lays its codes out feature-major as int32
+    (uint8 below): the same trees as the reference's grower on the
+    reference's codes at 300 bins."""
+    _, xbs, ws, _ = grown["jprep"]
+    y, depth, n_bins = grown["y"], grown["cfg"].depth, 300
+    want = jdt.fit_forest_binned(jnp.asarray(xbs), jnp.asarray(y), jnp.asarray(ws),
+                                 depth=depth, n_classes=2, n_bins=n_bins)
+    got = dt.fit_forest_binned(torch.from_numpy(xbs.copy()), torch.from_numpy(y),
+                               torch.from_numpy(ws.copy()), depth=depth, n_classes=2,
+                               n_bins=n_bins)
+    np.testing.assert_array_equal(got.split_feature.numpy(), np.asarray(want.split_feature))
+    np.testing.assert_array_equal(got.split_bin.numpy(), np.asarray(want.split_bin))
+    np.testing.assert_allclose(got.leaf_probs.numpy(), np.asarray(want.leaf_probs), rtol=0,
+                               atol=1e-6)
+    assert (got.split_feature.numpy() >= 0).sum() > 10
+
+
 def test_fit_equals_per_tree_oracle():
     x, y = _blobs(1, 150)
     cfg = rf.RotationForestConfig(n_trees=3, depth=4, n_bins=8)

@@ -9,6 +9,7 @@ Run from the root of a checkout, on one CUDA card:
     python3 tools/ab_kernels.py --hybrid [--root ...]
     python3 tools/ab_kernels.py --scoring [--root ...]
     python3 tools/ab_kernels.py --gate 0,1,2,3 [--root ...]
+    python3 tools/ab_kernels.py --grower [--root ...]
 
 The other checkout's ``src/repro_torch`` is imported (and its kernels
 built) in place of this one's; run the two in turns in separate processes
@@ -48,6 +49,14 @@ With --scoring (K1, K2 and the seizure paths they serve):
   (each the median of 5, synchronized wall), and the default MapReduce fit
   over 2 shards of 16 + 16 chunks (median of 3), with K1's and K2's
   launches in each.
+
+With --grower (K4 and the tree grower it serves): the default MapReduce fit
+over 2 shards of 16 + 16 chunks, once, with the grower's calls captured;
+then, on the last shard's own inputs, ``hist_ops.level_histogram`` at each
+of the six levels as the grower calls it (whatever bucket-id arithmetic the
+port does around its launch included; CUDA events, and the device time of
+the K4 kernel from a profile) and one ``fit_forest_binned`` call on (5, 960,
+288) (CUDA events around 3 calls, median of 5), with K4's launches.
 
 With --gate SEEDS, chip_smoke.py's training accuracy gate (the port-trained
 forest against the committed program on a held-out timeline, at most 0.05
@@ -277,6 +286,68 @@ def scoring(label: str, seed: int, root: Path) -> None:
           f"{wall_ms(fit, 3) / 1e3:.3f} s (median of 3); launches {launches(fit)}", flush=True)
 
 
+def device_ms(fn, kernel: str, calls: int = 20) -> float | None:
+    """Device time of one ``fn()`` in the kernels whose names contain
+    ``kernel``, from a profile of ``calls`` calls (None if none ran)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return sum(us) / calls / 1e3 if us else None
+
+
+def grower(label: str, seed: int) -> None:
+    import torch
+
+    from repro_torch.core import decision_tree as dt
+    from repro_torch.kernels.histogram import kernel as hk, ops as hist_ops
+    from repro_torch.signal import eeg_data, pipeline
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    per = eeg_data.WINDOWS_PER_MATRIX
+    rec = eeg_data.stratify_chunks(eeg_data.make_training_set(
+        gen, 3, n_interictal_windows=16 * per, n_preictal_windows=16 * per))
+    levels, calls = {}, {}
+    level_fn, grow_fn = hist_ops.level_histogram, dt.fit_forest_binned
+
+    def level_hook(*args, **kwargs):
+        levels[kwargs["nodes_at"].bit_length() - 1] = (args, kwargs)
+        return level_fn(*args, **kwargs)
+
+    def grow_hook(*args, **kwargs):
+        calls["grower"] = (args, kwargs)
+        return grow_fn(*args, **kwargs)
+
+    hist_ops.level_histogram, dt.fit_forest_binned = level_hook, grow_hook
+    try:
+        pipeline.fit(gen, rec, pipeline.PipelineConfig(), n_shards=2)
+    finally:
+        hist_ops.level_histogram, dt.fit_forest_binned = level_fn, grow_fn
+    for lv in sorted(levels):
+        args, kwargs = levels[lv]
+        dev = device_ms(lambda: level_fn(*args, **kwargs), "hist_kernel")
+        print(f"{label}: K4 level {lv} ({kwargs['nodes_at'] * kwargs['n_bins']} buckets, codes "
+              f"{tuple(args[0].shape)} {str(args[0].dtype).split('.')[1]}): level_histogram "
+              f"{time_ms(lambda: level_fn(*args, **kwargs)):.4f} ms, K4 device "
+              + ("not measured" if dev is None else f"{dev:.4f} ms"), flush=True)
+    args, kwargs = calls["grower"]
+    hk.LAUNCHES = 0
+    grow_fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    launches = hk.LAUNCHES
+    print(f"{label}: fit_forest_binned xb {tuple(args[0].shape)}: "
+          f"{time_ms(lambda: grow_fn(*args, **kwargs), launches=3, reps=5):.3f} ms; K4 "
+          f"launches {launches}", flush=True)
+
+
 def gate(label: str, seeds: list[int], root: Path) -> None:
     """chip_smoke.py's training accuracy gate, on fresh draws: for each
     seed, a generator seeded with it draws the training set (patient 3, 16
@@ -321,6 +392,8 @@ def main() -> int:
     mode.add_argument("--hybrid", action="store_true", help="K6 and a zamba2-7b prefill")
     mode.add_argument("--scoring", action="store_true",
                       help="K1, K2, the scoring stages, an engine step and a fit")
+    mode.add_argument("--grower", action="store_true",
+                      help="K4 at each level of a fit and one fit_forest_binned call")
     mode.add_argument("--gate", default=None, metavar="SEEDS",
                       help="the training accuracy gate on the draws of these seeds (0,1,2)")
     args = ap.parse_args()
@@ -338,6 +411,8 @@ def main() -> int:
     print(f"{label}: {smi}; port from {root / 'src' / 'repro_torch'}", flush=True)
     if args.scoring:
         scoring(label, args.seed, root)
+    elif args.grower:
+        grower(label, args.seed)
     elif args.gate is not None:
         gate(label, [int(v) for v in args.gate.split(",")], root)
     else:
