@@ -31,6 +31,29 @@ Phases (any failure exits non-zero):
      the plain versions; events must agree exactly in type, patient,
      chunk index, chunk vote and alarm, and a window prediction may
      differ only where its routing margin is below 1e-3 (z-units).
+  4b. Snapshot/restore, the reference_kernels leg and the streaming
+     frontend, at full width. The same traffic on SNAP_BATCH = 4 slots,
+     overlap 0 and 2: the engine snapshots after a push, before its poll
+     (slots bound, sessions waiting) and runs on exactly as an engine never
+     snapshotted; restored with megabatch=True its tail must equal the live
+     tail bit for bit in every field, restored with megabatch=False the
+     uninterrupted serial engine's tail (and the live tail within the event
+     rule); a restored engine launches K1 1, K2 2 and K3 6 times a step
+     (a backlog position, in the serial step)
+     ("snapshot" and "restore" lines: snapshot ms and MB, restore ms, the
+     first step after a restore against a steady step). The phase-3
+     traffic through a reference_kernels=True program (the reference's
+     pre-megabatch math: gather-form wavelet levels, sample-major PCA with
+     the masked reconstruction, scatter-add synthesis) at overlap 0 and 2:
+     events within phase 4's rule of the default leg's, K1 1, K2 9 (each
+     wavelet level K2's single level) and K3 6 launches a step, windows/s
+     of both legs; K2's single level and K3 held against their plain
+     versions at every shape the leg gives them, and a reading of whether
+     the leg's scatter-add synthesis (atomic adds) gives the same bits
+     twice. One session's stream fed
+     to a StreamingFrontend (overlap 2) in unaligned pieces and resumed
+     from its state_dict between chunk boundaries: bit-equal to the
+     uninterrupted feed and to pipeline.process_windows.
   5. Stage times of one engine step (the six eigh calls of one denoise
      among them), a profiler trace of one step (device busy and idle
      share, device time by kernel).
@@ -117,7 +140,8 @@ Phases (any failure exits non-zero):
      each request's first plain margin below half of that. Profiler
      traces of one prefill and one decode step, with K6's share; the
      prefill copies no tensor of B H S N elements with a head axis.
-  9. A ``kernels`` JSON line (K1-K6), the script's seconds, the card line,
+  9. A ``kernels`` JSON line (K1-K6; launches summed over the counted
+     runs of phases 3, 4b and 6-8), the script's seconds, the card line,
      and the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -151,6 +175,10 @@ CHUNKS_PER_SESSION = 6
 MAX_BATCH = 8
 REPLAY_DEPTH = 4
 PUSH_CUTS = (0, 97, 150, 245, 270, 333, 360)  # chunk-unaligned push pieces
+# Phase 4b: 8 sessions on 4 slots, snapshot after the push of round 2 (of
+# 6), before its poll: 4 sessions hold the slots and 4 wait, 2 chunks each.
+SNAP_BATCH = 4
+SNAP_ROUND = 2
 TRAIN_PATIENT = 3
 TRAIN_CHUNKS_PER_CLASS = 16
 TRAIN_SHARDS = 2
@@ -438,6 +466,18 @@ def wpd_check(xr) -> tuple[float, float]:
     return err, 1e-5 * float(xr.abs().max())
 
 
+def gram_check(xv) -> tuple[float, float]:
+    """K3 on xv (..., n, P), as given: (max abs error against the plain
+    version, its tolerance 1e-5 * max|G|)."""
+    import torch
+
+    from repro_torch.kernels.gram import kernel as gk, ref as gr
+
+    got, want = gk.gram(xv), gr.gram(xv)
+    torch.cuda.synchronize()
+    return float((got - want).abs().max()), 1e-5 * float(want.abs().max())
+
+
 def wpd_row(xr) -> dict:
     """K2 against its plain version on xr (rows, N) with the db4 filters
     (max abs error <= 1e-5 * max|x|), timed beside conv1d and its bound."""
@@ -664,10 +704,7 @@ def gram_row(xv) -> dict:
 
     from repro_torch.kernels.gram import kernel as gk, ref as gr
 
-    got, want = gk.gram(xv), gr.gram(xv)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    tol = 1e-5 * float(want.abs().max())
+    err, tol = gram_check(xv)
     if not err <= tol:
         fail(f"gram kernel {tuple(xv.shape)} disagrees with its plain version: "
              f"{err} > {tol}")
@@ -969,6 +1006,293 @@ def trace_step(program, traffic) -> None:
                 if any(k in kv[0] for k in ("forest_kernel", "gram_kernel", "wpd_kernel"))]
         for kname, (ms, n) in ranked[:10] + ours:
             print(f"trace kernel: {ms:.3f} ms in {n} launches: {kname[:110]}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: snapshot/restore, the streaming frontend, the reference_kernels leg
+# ---------------------------------------------------------------------------
+
+def snap_start(program, traffic, *, megabatch: bool, snapshot_dir=None):
+    """An engine of SNAP_BATCH slots serving the traffic's push rounds up
+    to and including the push of round SNAP_ROUND, where it snapshots into
+    ``snapshot_dir`` (if given) before that round's poll. Returns the
+    engine, the events so far (the head) and the snapshot's ms."""
+    import torch
+
+    from repro_torch.serving import api
+
+    engine = api.SeizureEngine(program, max_batch=SNAP_BATCH, replay_depth=REPLAY_DEPTH,
+                               megabatch=megabatch, device="cuda")
+    sessions = {pid: engine.open_session(pid) for pid in traffic}
+    head, snap_ms = [], None
+    for r, (lo, hi) in enumerate(zip(PUSH_CUTS[:-1], PUSH_CUTS[1:])):
+        for pid, s in sessions.items():
+            s.push(traffic[pid][lo:hi])
+        if r == SNAP_ROUND:
+            if snapshot_dir is not None:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine.snapshot(str(snapshot_dir), step=SNAP_ROUND)
+                snap_ms = (time.perf_counter() - t0) * 1e3
+            return engine, head, snap_ms
+        head += engine.poll(drain=False)
+
+
+def snap_resume(engine, traffic) -> tuple[list, list[float]]:
+    """The schedule's rest from the snapshot point (the tail), with the
+    synchronized wall ms of each device step it ran."""
+    import torch
+
+    step, step_ms = engine._step, []
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*args, **kwargs)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    engine._step = timed
+    events = engine.poll(drain=False)
+    for lo, hi in zip(PUSH_CUTS[SNAP_ROUND + 1:-1], PUSH_CUTS[SNAP_ROUND + 2:]):
+        for pid in traffic:
+            engine.session(pid).push(traffic[pid][lo:hi])
+        events += engine.poll(drain=False)
+    events += engine.poll()
+    engine._step = step
+    return events, step_ms
+
+
+def first_difference(got, want) -> str | None:
+    """None when the two event lists are equal in every field (window
+    predictions and preictal_frac included), else the first difference."""
+    from repro_torch.serving import api
+
+    if len(got) != len(want):
+        return f"{len(got)} events against {len(want)}"
+    for i, (g, w) in enumerate(zip(got, want)):
+        if type(g) is not type(w):
+            return f"event {i}: {type(g).__name__} against {type(w).__name__}"
+        if isinstance(w, api.ChunkScored):
+            same = (g[:5] + (g.program_version,) == w[:5] + (w.program_version,)
+                    and np.array_equal(g.window_preds, w.window_preds))
+            if not same:
+                bad = np.flatnonzero(g.window_preds != w.window_preds)
+                return (f"first differing chunk: patient {w.patient_id} chunk {w.chunk_index}: "
+                        f"{g[:5]} against {w[:5]}, window predictions differ at {bad.tolist()}")
+        elif tuple(g) != tuple(w):
+            return f"event {i}: {g} against {w}"
+    return None
+
+
+def snapshot_phase(program, traffic) -> dict[str, int]:
+    """Snapshot/restore at full width, overlap 0 and 2: SNAP_BATCH slots
+    for the 8 sessions, so slots are bound and sessions wait when the
+    snapshot is taken (after the push of round SNAP_ROUND, before its
+    poll). The live engine must go on exactly as one never snapshotted;
+    restored with megabatch=True its tail must equal the live tail bit for
+    bit, and with megabatch=False the uninterrupted serial engine's tail
+    (the snapshot holds votes and raw windows only), within the event rule
+    of the live tail. A restored engine launches K1 1, K2 2 and K3 6 times a
+    step (the serial step: a backlog position). Returns the restored
+    engines' launches."""
+    import shutil
+
+    import torch
+
+    from repro_torch.serving import api
+
+    launches = {"forest": 0, "wpd_level": 0, "gram": 0}
+    root = ROOT / "build" / "engine_snapshots"
+    shutil.rmtree(root, ignore_errors=True)
+    for overlap in (0, 2):
+        prog = api.ScoringProgram(program.packed, program.feat_mean, program.feat_std,
+                                  program.cfg._replace(overlap=overlap))
+        full = {}
+        for mb in (True, False):
+            engine, head, _ = snap_start(prog, traffic, megabatch=mb)
+            full[mb] = head + snap_resume(engine, traffic)[0]
+        directory = root / f"overlap{overlap}"
+        engine, head, snap_ms = snap_start(prog, traffic, megabatch=True,
+                                           snapshot_dir=directory)
+        queued = sum(s.pending_chunks for s in engine._sessions.values())
+        waiting = len(engine._waiting)
+        live_tail, live_ms = snap_resume(engine, traffic)
+        diff = first_difference(head + live_tail, full[True])
+        if diff is not None:
+            fail(f"snapshot overlap={overlap}: the live engine changed after its snapshot: {diff}")
+        step_dir = directory / f"step_{SNAP_ROUND:08d}"
+        mb_size = sum(f.stat().st_size for f in step_dir.iterdir()) / 1e6
+        print(f"snapshot overlap={overlap}: {snap_ms:.3f} ms, {mb_size:.3f} MB on disk, "
+              f"{len(head)} events before it, {queued} chunks queued, {waiting} sessions "
+              f"waiting; the live engine's tail is unchanged by it ({len(live_tail)} events)")
+        if waiting == 0:
+            fail(f"snapshot overlap={overlap}: no session waits at the snapshot")
+        for mb in (True, False):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            restored = api.SeizureEngine.restore(str(directory), megabatch=mb, device="cuda")
+            torch.cuda.synchronize()
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            steps0 = restored.steps
+            tail, step_ms = snap_resume(restored, traffic)
+            counts = launch_counts()
+            # The serial step runs the heavy stage once per backlog position.
+            steps = restored.steps - steps0
+            passes = steps * (1 if mb else REPLAY_DEPTH)
+            want = {"forest": passes, "wpd_level": 2 * passes, "gram": 6 * passes}
+            if {k: counts[k] for k in want} != want:
+                fail(f"restored engine overlap={overlap} megabatch={mb}: launches {counts} over "
+                     f"{steps} steps, expected {want}")
+            for k in launches:
+                launches[k] += counts[k]
+            oracle = live_tail if mb else full[False][len(head):]
+            diff = first_difference(tail, oracle)
+            if diff is not None:
+                fail(f"restored engine overlap={overlap} megabatch={mb} is not bit-identical "
+                     f"to the uninterrupted engine: {diff}")
+            if mb:
+                note = (f"bit-identical to the live engine's; first step after the restore "
+                        f"{step_ms[0]:.3f} ms against {live_ms[0]:.3f} ms for the live "
+                        "engine's same step")
+            else:
+                differing = compare_events(tail, live_tail, prog, traffic)
+                note = ("bit-identical to the uninterrupted serial engine's and within the "
+                        f"event rule of the live megabatch tail ({differing} window predictions "
+                        f"differ); first step after the restore {step_ms[0]:.3f} ms")
+            print(f"restore overlap={overlap} megabatch={mb}: {restore_ms:.3f} ms; tail of "
+                  f"{len(tail)} events {note}, a steady step (median of the restored "
+                  f"engine's later steps) {statistics.median(step_ms[1:]):.3f} ms; "
+                  f"{steps} steps, launches { {k: counts[k] for k in want} }")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def streaming_phase(program, traffic) -> dict[str, int]:
+    """One session's stream fed to a StreamingFrontend (overlap 2) in the
+    chunk-unaligned PUSH_CUTS pieces; after the piece of round SNAP_ROUND
+    (between chunk boundaries) its state_dict resumes a new one. Both must
+    give the same bits, and those of pipeline.process_windows of the
+    chunk-aligned stream. Each chunk fed launches K2 twice and K3 six
+    times. Returns the feeds' launches."""
+    import torch
+
+    from repro_torch.signal import frontend, pipeline
+
+    cfg = program.cfg._replace(overlap=2)
+    pid = next(iter(traffic))
+    stream = traffic[pid]
+    pieces = [stream[lo:hi] for lo, hi in zip(PUSH_CUTS[:-1], PUSH_CUTS[1:])]
+    full = frontend.StreamingFrontend(cfg, device="cuda")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [full.feed(p) for p in pieces[:SNAP_ROUND + 1]]
+    saved = full.state_dict()
+    seen, pending = full.chunks_seen, full.pending_windows
+    resumed = frontend.StreamingFrontend(cfg, device="cuda")
+    resumed.load_state_dict(saved)
+    outs += [full.feed(p) for p in pieces[SNAP_ROUND + 1:]]
+    feed_s = time.perf_counter() - t0
+    tail = np.concatenate([resumed.feed(p) for p in pieces[SNAP_ROUND + 1:]])
+    counts = launch_counts()
+    fed = full.chunks_seen + resumed.chunks_seen - seen
+    want = {"forest": 0, "wpd_level": 2 * fed, "gram": 6 * fed}
+    if {k: counts[k] for k in want} != want:
+        fail(f"streaming frontend: launches {counts} over {fed} chunks, expected {want}")
+    if not np.array_equal(tail, np.concatenate(outs[SNAP_ROUND + 1:])):
+        fail("the resumed StreamingFrontend's features differ from the uninterrupted one's")
+    got = np.concatenate(outs)
+    batch = pipeline.process_windows(torch.from_numpy(stream).to("cuda"), cfg).cpu().numpy()
+    if got.shape != batch.shape or not np.array_equal(got, batch):
+        fail("the StreamingFrontend's features differ from pipeline.process_windows'")
+    print(f"streaming frontend overlap=2: {len(pieces)} pieces of {[len(p) for p in pieces]} "
+          f"windows -> {got.shape} features in {feed_s:.3f} s; state_dict after piece "
+          f"{SNAP_ROUND} ({seen} chunks seen, {pending} windows pending) resumes bit-equal, "
+          f"and both equal pipeline.process_windows bit for bit; launches {want}")
+    return want
+
+
+def reference_leg_phase(program, traffic, default_runs) -> dict[str, int]:
+    """The traffic through an engine whose program has reference_kernels=
+    True, at overlap 0 and 2: events within the rule of the default leg's
+    (``default_runs[overlap]``: events and stats), K1 1, K2 9 (5 DWT and 4
+    packet levels, each K2's single level) and K3 6 launches a step. K2's
+    single level and K3 are held against their plain versions on every
+    input shape the leg gave them. Returns the leg's launches."""
+    import torch
+
+    from repro_torch.kernels.gram import kernel as gk
+    from repro_torch.kernels.wpd import kernel as wk
+    from repro_torch.serving import api
+
+    launches = {"forest": 0, "wpd_level": 0, "gram": 0}
+    for overlap in (0, 2):
+        prog = api.ScoringProgram(program.packed, program.feat_mean, program.feat_std,
+                                  program.cfg._replace(overlap=overlap))
+        leg = api.ScoringProgram(program.packed, program.feat_mean, program.feat_std,
+                                 prog.cfg._replace(reference_kernels=True))
+        captured: dict[str, dict] = {"wpd_level": {}, "gram": {}}
+        level, gram = wk.wpd_level, gk.gram
+
+        def level_hook(x, h, g):
+            captured["wpd_level"].setdefault(tuple(x.shape), x)
+            return level(x, h, g)
+
+        def gram_hook(x):
+            captured["gram"].setdefault((tuple(x.shape), x.stride()), x)
+            return gram(x)
+
+        reset_counts()
+        wk.wpd_level, gk.gram = level_hook, gram_hook
+        try:
+            events, stats = drive(leg, traffic)
+        finally:
+            wk.wpd_level, gk.gram = level, gram
+        counts = launch_counts()
+        want = {"forest": stats["steps"], "wpd_level": 9 * stats["steps"],
+                "gram": 6 * stats["steps"]}
+        if {k: counts[k] for k in want} != want:
+            fail(f"reference_kernels leg overlap={overlap}: launches {counts} over "
+                 f"{stats['steps']} steps, expected {want}")
+        for k in launches:
+            launches[k] += counts[k]
+        default_events, default_stats = default_runs[overlap]
+        differing = compare_events(events, default_events, prog, traffic)
+        print(f"reference_kernels leg overlap={overlap}: steps {stats['steps']}, "
+              f"{stats['windows_per_s']:.1f} windows/s ({stats['seconds']:.2f} s) against "
+              f"the default leg's {default_stats['windows_per_s']:.1f}; events equal, "
+              f"{differing} window predictions differ (all at routing margin < 1e-3); "
+              f"launches {counts}")
+        for shape, x in captured["wpd_level"].items():
+            err, tol = wpd_check(x)
+            if not err <= tol:
+                fail(f"wpd_level kernel {shape} (reference_kernels leg) disagrees with its "
+                     f"plain version: {err} > {tol}")
+        for (shape, stride), x in captured["gram"].items():
+            err, tol = gram_check(x)
+            if not err <= tol:
+                fail(f"gram kernel {shape} strides {stride} (reference_kernels leg) disagrees "
+                     f"with its plain version: {err} > {tol}")
+        print(f"reference_kernels leg overlap={overlap}: K2's single level within 1e-5 max|x| "
+              f"of its plain version at all {len(captured['wpd_level'])} shapes the leg gave it "
+              f"({sorted(captured['wpd_level'])}), K3 within 1e-5 max|G| at "
+              f"{sorted(s for s, _ in captured['gram'])}")
+        del captured
+        torch.cuda.empty_cache()
+    # The leg's scatter-add synthesis adds with atomics (index_add_): read
+    # whether two calls on the same inputs give the same bits.
+    from repro_torch.signal import wavelet
+
+    extra = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    a, d = (torch.randn((MAX_BATCH * REPLAY_DEPTH, 180, 1024), generator=extra, device="cuda")
+            for _ in range(2))
+    first, second = (wavelet.synthesis_step_reference(a, d) for _ in range(2))
+    print(f"reference_kernels leg: scatter-add synthesis of {tuple(a.shape)} twice on the same "
+          f"inputs: {int((first != second).sum())} of {first.numel()} outputs differ")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2271,6 +2595,7 @@ def main() -> int:
     torch.linalg.eigh(torch.eye(8, device="cuda"))
     traffic = make_traffic(gen)
     launches = {"forest": 0, "wpd_level": 0, "gram": 0}
+    default_runs = {}
     for overlap in (0, 2):
         prog = api.ScoringProgram(program.packed, program.feat_mean, program.feat_std,
                                   program.cfg._replace(overlap=overlap))
@@ -2300,6 +2625,17 @@ def main() -> int:
         print(f"engine overlap={overlap} plain path: {plain_stats['windows_per_s']:.1f} "
               f"windows/s; events equal, {differing} window predictions differ "
               "(all at routing margin < 1e-3)")
+        default_runs[overlap] = events, stats
+
+    # Phase 4b.
+    t0 = time.perf_counter()
+    for phase_launches in (snapshot_phase(program, traffic),
+                           reference_leg_phase(program, traffic, default_runs),
+                           streaming_phase(program, traffic)):
+        for k, n in phase_launches.items():
+            launches[k] += n
+    print(f"phase 4b (snapshot/restore, reference_kernels leg, streaming frontend): "
+          f"{time.perf_counter() - t0:.1f} s")
 
     for stage, ms in stage_times(program, traffic).items():
         print(f"stage {stage}: {ms:.3f} ms")

@@ -19,7 +19,7 @@ state and distinct per shard. The streams differ from the reference's, so port-t
 JAX-trained trees are compared by accuracy, never tree by tree.
 
 The mesh mode (``mesh=``, one process per card over ``torch.distributed``)
-is not ported yet (ROADMAP.md, queue 1 item 11).
+is not ported yet (ROADMAP.md queue 1, "Distributed training").
 """
 
 from __future__ import annotations

@@ -11,7 +11,8 @@ that order. The reducers are commutative monoids, as Hadoop asks of
 combiners, so the order changes at most the float rounding of a sum.
 
 ``MapReduce.run`` over a mesh and ``shuffle_by_key`` wait for a
-``torch.distributed`` slice of the port (ROADMAP.md, queue 1 item 11).
+``torch.distributed`` slice of the port (ROADMAP.md queue 1, "Distributed
+training").
 """
 
 from __future__ import annotations
@@ -79,8 +80,8 @@ class MapReduce:
 
     def run(self, *args, **kwargs):
         raise NotImplementedError(
-            "MapReduce.run over a device mesh is not ported yet (ROADMAP.md, "
-            "queue 1 item 11: the torch.distributed mode); use run_local"
+            "MapReduce.run over a device mesh is not ported yet (ROADMAP.md "
+            "queue 1, Distributed training: the torch.distributed mode); use run_local"
         )
 
     def run_local(self, n_shards: int, *inputs, replicated_inputs: tuple = ()):

@@ -64,20 +64,47 @@ def fit_T(xT: torch.Tensor) -> PCAState:
     return _state(mean, cov)
 
 
-def _keep_mask(keep: torch.Tensor, f: int, device) -> torch.Tensor:
+def _keep_mask(keep: int | torch.Tensor, f: int, device) -> torch.Tensor:
     """(..., F) 0/1 float mask of the first ``keep`` components."""
+    keep = torch.as_tensor(keep, device=device)
     return (torch.arange(f, device=device) < keep.unsqueeze(-1)).to(torch.float32)
 
 
+def transform(
+    state: PCAState, x: torch.Tensor, n_components: int | None = None
+) -> torch.Tensor:
+    """Scores of x (..., N, F) on the leading ``n_components`` (all when
+    None)."""
+    comps = state.components
+    if n_components is not None:
+        comps = comps[..., :n_components]
+    return (x - state.mean.unsqueeze(-2)) @ comps
+
+
+def inverse_transform(state: PCAState, scores: torch.Tensor) -> torch.Tensor:
+    """Back from (..., N, k) scores on the leading k components."""
+    k = scores.shape[-1]
+    comps = state.components[..., :k]
+    return scores @ comps.transpose(-1, -2) + state.mean.unsqueeze(-2)
+
+
 def reconstruct(
-    state: PCAState, x: torch.Tensor, keep: int | torch.Tensor
+    state: PCAState,
+    x: torch.Tensor,
+    keep: int | torch.Tensor,
+    *,
+    masked: bool | None = None,
 ) -> torch.Tensor:
     """Project x (..., N, F) onto the leading ``keep`` components and back.
-    An int slices the components; a tensor count (per batch entry) masks
-    the scores instead."""
+    By default an int slices the components and a tensor count (per batch
+    entry) masks the scores; ``masked=True`` takes the full-width masked
+    form for an int too (the reference's pre-megabatch formulation, which
+    the ``reference_kernels`` leg runs)."""
+    if masked is None:
+        masked = not isinstance(keep, int)
     xc = x - state.mean.unsqueeze(-2)
-    if isinstance(keep, int):
-        comps = state.components[..., : min(keep, state.components.shape[-1])]
+    if not masked:
+        comps = state.components[..., : min(int(keep), state.components.shape[-1])]
         return (xc @ comps) @ comps.transpose(-1, -2) + state.mean.unsqueeze(-2)
     scores = xc @ state.components
     mask = _keep_mask(keep, scores.shape[-1], x.device).unsqueeze(-2)
@@ -95,6 +122,14 @@ def reconstruct_T(
     scores = state.components.transpose(-1, -2) @ xc
     mask = _keep_mask(keep, scores.shape[-2], xT.device).unsqueeze(-1)
     return state.components @ (scores * mask) + state.mean.unsqueeze(-1)
+
+
+def n_components_for_variance(state: PCAState, frac: float = 0.95) -> torch.Tensor:
+    """Smallest k whose leading components capture ``frac`` of the total
+    variance."""
+    total = state.variances.sum(dim=-1, keepdim=True)
+    cum = torch.cumsum(state.variances, dim=-1)
+    return (cum < frac * total.clamp(min=1e-12)).sum(dim=-1) + 1
 
 
 def kaiser_rule(state: PCAState) -> torch.Tensor:

@@ -18,7 +18,7 @@ mismatch.
 The reference's ``--devices`` (a real mesh) is not ported: ``--shards``
 runs the map shards one after the other on ``--device``. The reference
 also counts recompiles across the swap; the port runs eagerly and has no
-compile budget yet (ROADMAP.md, queue 1 item 13).
+compile budget yet (ROADMAP.md queue 1, "Static checks for the port").
 """
 
 from __future__ import annotations

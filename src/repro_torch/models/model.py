@@ -30,7 +30,8 @@ float32: the norm scales, and Mamba2's ``dt_bias`` and ``A_log``.
 
 Not ported yet (each raises ``NotImplementedError``): the moe, ssm,
 audio and vlm families, the mesh fields (``act_axes``, ``seq_shard``,
-``context_parallel``, ``moe_wg``) and ``loss`` (ROADMAP queue 1, item 14).
+``context_parallel``, ``moe_wg``) and ``loss`` (ROADMAP.md queue 1: "The
+remaining LM families", "Mesh and dry-run tools", "LM training").
 """
 
 from __future__ import annotations

@@ -20,8 +20,11 @@
 The engine's state lives on its device (CUDA unless ``device="cpu"`` is
 asked for). ``swap_program`` installs a retrained program into the
 running engine and bumps the ``program_version`` every ``ChunkScored``
-carries. Snapshot/restore and mesh sharding of the reference engine are
-not ported yet (ROADMAP.md).
+carries. ``snapshot`` writes the whole engine (device state, program,
+every session's queue and context) as one atomic checkpoint in the
+reference's layout, and ``SeizureEngine.restore`` rebuilds it: a snapshot
+of either package restores in the other. Mesh sharding of the reference
+engine is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ from repro_torch.core.rotation_forest import RotationForestConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.forest import ops as forest_ops
 from repro_torch.signal import eeg_data, features, frontend
-from repro_torch.signal.pipeline import FittedPipeline, PipelineConfig, check_supported
+from repro_torch.signal.pipeline import FittedPipeline, PipelineConfig
 
 
 # ---------------------------------------------------------------------------
@@ -72,6 +75,12 @@ class AlarmCleared(NamedTuple):
 
     patient_id: int
     chunk_index: int
+
+
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of a device leaf. On the CPU ``.cpu().numpy()`` would be
+    a view of the tensor (of a slot, which the next admission overwrites)."""
+    return t.detach().cpu().numpy().copy()
 
 
 # ---------------------------------------------------------------------------
@@ -116,7 +125,7 @@ class ScoringProgram:
         float32 leaves plus the config as a uint8 JSON leaf."""
         cfg_json = self.cfg._asdict()
         cfg_json["forest"] = self.cfg.forest._asdict()
-        arrays = {k: v.detach().cpu().numpy() for k, v in self._arrays().items()}
+        arrays = {k: _host_copy(v) for k, v in self._arrays().items()}
         arrays["cfg_json"] = np.frombuffer(json.dumps(cfg_json).encode(), dtype=np.uint8)
         return arrays
 
@@ -326,10 +335,31 @@ def _splice_state(state, slot, ring, pos, alarm, boundary, phase) -> None:
     state.fe_phase[slot] = int(phase)
 
 
-def _host_copy(t: torch.Tensor) -> np.ndarray:
-    """A numpy copy of a state row. On the CPU ``.cpu().numpy()`` would be
-    a view of the slot, which the next admission overwrites."""
-    return t.cpu().numpy().copy()
+def _install_state(
+    state: EngineState, *, max_batch: int, alarm_m: int, fe_width: int,
+    device: torch.device,
+) -> EngineState:
+    """The restore path's state install (the reference's ``_install_state``):
+    every snapshot leaf as a contiguous int32 (float32 for the boundary)
+    tensor on ``device``, its shape checked against the engine's
+    ``max_batch``, ``alarm_m`` and boundary width first."""
+    want = EngineState(
+        rings=(max_batch, alarm_m), ring_pos=(max_batch,), alarm=(max_batch,),
+        fe_boundary=(max_batch, fe_width, eeg_data.N_CHANNELS, eeg_data.WINDOW),
+        fe_phase=(max_batch,),
+    )
+    leaves = {}
+    for name, leaf in state._asdict().items():
+        t = torch.as_tensor(leaf)
+        if tuple(t.shape) != getattr(want, name):
+            raise ValueError(
+                f"engine snapshot leaf state__{name} has shape {tuple(t.shape)}, "
+                f"expected {getattr(want, name)} (max_batch={max_batch}, "
+                f"alarm_m={alarm_m}, boundary width={fe_width})"
+            )
+        dtype = torch.float32 if name == "fe_boundary" else torch.int32
+        leaves[name] = t.to(device=device, dtype=dtype).contiguous()
+    return EngineState(**leaves)
 
 
 # ---------------------------------------------------------------------------
@@ -445,7 +475,6 @@ class SeizureEngine:
     ):
         if replay_depth < 1:
             raise ValueError(f"replay_depth={replay_depth} must be >= 1")
-        check_supported(program.cfg)
         self.device = resolve_device(device)
         self.program = self._install_program(program)
         self.max_batch = max_batch
@@ -470,7 +499,8 @@ class SeizureEngine:
 
     def _install_program(self, program: ScoringProgram) -> ScoringProgram:
         """The program with contiguous float32 leaves on the engine's
-        device: the one path both the constructor and ``swap_program`` take."""
+        device: the one path the constructor, ``swap_program`` and
+        ``restore`` take (the reference's ``_install_program_arrays``)."""
         return program.to(self.device)
 
     def swap_program(self, new_program: ScoringProgram, *, version: int | None = None) -> int:
@@ -682,3 +712,158 @@ class SeizureEngine:
         return _score_chunks(
             chunks, program.packed, program.feat_mean, program.feat_std, cfg=program.cfg
         )
+
+    # -- persistence (snapshot / restore) ------------------------------------
+
+    def snapshot(self, directory: str, step: int) -> str:
+        """Write the whole engine as one atomic checkpoint (the store's
+        temp dir + rename) under ``directory/step_<step>``, in the
+        reference's layout, leaf for leaf:
+
+          * ``state__<leaf>``   -- the (B,)-leading ``EngineState``;
+          * ``program__<leaf>`` -- ``ScoringProgram._to_arrays()`` (K1's
+            derived tables are never saved);
+          * ``sess<pid:08d>__{chunks,buf,ring,fe_boundary}`` -- each
+            session's queued chunks (k, W, C, N), partial-chunk buffer,
+            alarm ring and frontend boundary;
+          * ``host_json`` -- uint8 JSON: ``format`` 1, the engine's
+            settings (``use_forest_kernel`` false, for the reference's
+            constructor), steps and program version, each session's
+            scalars and queued-chunk AGES, slot bindings and the waiting
+            queue's order.
+
+        Every leaf is a host copy: the running engine continues exactly as
+        if no snapshot had been taken."""
+        arrays: dict[str, np.ndarray] = {
+            f"state__{name}": _host_copy(leaf) for name, leaf in self._state._asdict().items()
+        }
+        arrays.update({f"program__{k}": v for k, v in self.program._to_arrays().items()})
+        now = self._clock()
+        sessions_meta = []
+        for pid, s in self._sessions.items():
+            tag = f"sess{pid:08d}"
+            queued = [w for _, w in s.chunks]
+            arrays[f"{tag}__chunks"] = (
+                np.stack(queued).astype(np.float32) if queued
+                else np.zeros((0, self.chunk_windows, eeg_data.N_CHANNELS, eeg_data.WINDOW),
+                              np.float32)
+            )
+            arrays[f"{tag}__buf"] = np.array(s._buf, np.float32)
+            arrays[f"{tag}__ring"] = np.array(s.ring, np.int32)
+            arrays[f"{tag}__fe_boundary"] = np.array(s.fe_boundary, np.float32)
+            sessions_meta.append({
+                "patient_id": pid,
+                "ring_pos": int(s.ring_pos),
+                "alarm": int(s.alarm),
+                "fe_phase": int(s.fe_phase),
+                "chunk_seq": int(s.chunk_seq),
+                "slot": s.slot,
+                "queued": bool(s.queued),
+                "chunk_ages": [float(now - t) for t, _ in s.chunks],
+            })
+        host = {
+            "format": 1,
+            "engine": {
+                "max_batch": self.max_batch,
+                "chunk_windows": self.chunk_windows,
+                "replay_depth": self.replay_depth,
+                "megabatch": self.megabatch,
+                "latency_budget_s": self.latency_budget_s,
+                "use_forest_kernel": False,
+                "steps": self.steps,
+                "program_version": self.program_version,
+            },
+            "sessions": sessions_meta,
+            "waiting": [s.patient_id for s in self._waiting],
+        }
+        arrays["host_json"] = np.frombuffer(json.dumps(host).encode(), dtype=np.uint8)
+        return ckpt_store.save(directory, step, arrays)
+
+    @classmethod
+    def restore(
+        cls,
+        directory: str,
+        step: int | None = None,
+        *,
+        megabatch: bool | None = None,
+        clock=time.monotonic,
+        device: torch.device | str | None = None,
+    ) -> "SeizureEngine":
+        """Rebuild an engine from a ``snapshot`` of either package (the
+        latest step when ``step`` is None) on ``device`` (CUDA by default):
+        from here on it emits what the uninterrupted engine would have.
+
+        ``megabatch`` and ``clock`` may be overridden; everything else
+        comes from the snapshot. The reference's ``use_forest_kernel`` key
+        is ignored: the port routes K1 by device. Queued-chunk ages are
+        rebased onto ``clock``; the slot bindings and the waiting queue's
+        order are restored as they were, so the first ``poll`` admits and
+        evicts as the uninterrupted engine would. Raises
+        ``FileNotFoundError`` for a missing or empty directory and
+        ``ValueError`` for another snapshot format or a leaf whose shape
+        does not fit the engine."""
+        dev = resolve_device(device)
+        if step is None:
+            step = ckpt_store.latest_step(directory)
+            if step is None:
+                raise FileNotFoundError(
+                    f"no engine snapshots under {directory!r} (empty or missing directory)"
+                )
+        arrays = ckpt_store.restore(directory, step)
+        host = json.loads(arrays["host_json"].numpy().tobytes().decode())
+        if host.get("format") != 1:
+            raise ValueError(
+                f"unsupported engine snapshot format {host.get('format')!r} "
+                f"in {directory!r} step {step}"
+            )
+        eng = host["engine"]
+        program = ScoringProgram._from_arrays(
+            {k[len("program__"):]: v for k, v in arrays.items() if k.startswith("program__")},
+            dev,
+        )
+        engine = cls(
+            program,
+            max_batch=eng["max_batch"],
+            chunk_windows=eng["chunk_windows"],
+            replay_depth=eng["replay_depth"],
+            megabatch=eng["megabatch"] if megabatch is None else megabatch,
+            latency_budget_s=eng["latency_budget_s"],
+            clock=clock,
+            device=dev,
+        )
+        engine.steps = int(eng["steps"])
+        engine.program_version = int(eng["program_version"])
+        engine._state = _install_state(
+            EngineState(*(arrays[f"state__{n}"] for n in EngineState._fields)),
+            max_batch=engine.max_batch, alarm_m=engine.alarm_m,
+            fe_width=engine.fe_width, device=dev,
+        )
+        now = engine._clock()
+        boundary_shape = (engine.fe_width, eeg_data.N_CHANNELS, eeg_data.WINDOW)
+        for meta in host["sessions"]:
+            pid = int(meta["patient_id"])
+            tag = f"sess{pid:08d}"
+            s = engine.open_session(pid)
+            s.ring = np.array(arrays[f"{tag}__ring"].numpy(), np.int32)
+            s.fe_boundary = np.array(arrays[f"{tag}__fe_boundary"].numpy(), np.float32)
+            if s.ring.shape != (engine.alarm_m,) or s.fe_boundary.shape != boundary_shape:
+                raise ValueError(
+                    f"engine snapshot session {pid}: ring {s.ring.shape} and boundary "
+                    f"{s.fe_boundary.shape}, expected ({engine.alarm_m},) and {boundary_shape}"
+                )
+            queued = arrays[f"{tag}__chunks"].numpy()
+            for age, w in zip(meta["chunk_ages"], queued):
+                s.chunks.append((now - float(age), np.array(w, np.float32)))
+            s._buf = np.array(arrays[f"{tag}__buf"].numpy(), np.float32)
+            s.ring_pos = int(meta["ring_pos"])
+            s.alarm = int(meta["alarm"])
+            s.fe_phase = int(meta["fe_phase"])
+            s.chunk_seq = int(meta["chunk_seq"])
+            if meta["slot"] is not None:
+                s.slot = int(meta["slot"])
+                engine._slots[s.slot] = s
+        for pid in host["waiting"]:
+            s = engine._sessions[int(pid)]
+            engine._waiting.append(s)
+            s.queued = True
+        return engine

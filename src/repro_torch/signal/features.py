@@ -28,13 +28,17 @@ def node_features(coeffs: torch.Tensor) -> torch.Tensor:
 
 
 def wpd_features(
-    windows: torch.Tensor, level: int = 4, wavelet_name: str = "db4"
+    windows: torch.Tensor,
+    level: int = 4,
+    wavelet_name: str = "db4",
+    reference_kernels: bool = False,
 ) -> torch.Tensor:
     """Windows (..., C, N) -> features (..., C * 2**level * 6): WPD to
     ``level`` and six statistics per terminal node, flattened over
-    channels and nodes."""
-    feats = node_features(wavelet.wpd(windows, level, wavelet_name))
-    return feats.reshape(windows.shape[:-2] + (-1,))
+    channels and nodes. ``reference_kernels=True`` runs the WPD level by
+    level in the reference's gather form."""
+    nodes = wavelet.wpd(windows, level, wavelet_name, reference=reference_kernels)
+    return node_features(nodes).reshape(windows.shape[:-2] + (-1,))
 
 
 def feature_dim(n_channels: int, level: int = 4) -> int:

@@ -8,7 +8,10 @@ twin of ``repro.signal.pipeline``.
 so a program's ``cfg_json`` leaf parses into it and serializes back byte
 for byte. ``use_kernel`` is kept for that parity only: the port routes
 every kernel by the device its tensors lie on. ``reference_kernels=True``
-(the reference's pre-megabatch bench leg) is not ported yet.
+runs the reference's pre-megabatch formulations (the serving bench's
+serial-replay leg): gather-form wavelet analysis level by level,
+sample-major PCA with the full-width masked reconstruction, scatter-add
+synthesis.
 
 ``fit`` trains on one device or MapReduce-style (``n_shards``), and
 ``evaluate_timeline`` scores a chronological stream through a one-slot
@@ -47,16 +50,6 @@ class PipelineConfig(NamedTuple):
     reference_kernels: bool = False
 
 
-def check_supported(cfg: PipelineConfig) -> None:
-    """Raise for the config values the port does not run yet."""
-    if cfg.reference_kernels:
-        raise NotImplementedError(
-            "PipelineConfig(reference_kernels=True) is not ported yet "
-            "(ROADMAP.md queue 1, the reference_kernels bench leg of items "
-            "2-4); use the default kernels"
-        )
-
-
 class FittedPipeline(NamedTuple):
     forest: rf.RotationForestParams
     feat_mean: torch.Tensor
@@ -77,10 +70,12 @@ def process_windows(windows: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
     ``jnp.resize``, which also covers a recording shorter than one chunk)
     and the padding rows are dropped.
     """
-    check_supported(cfg)
     w, c, n = windows.shape
     if not cfg.denoise:
-        return features.wpd_features(windows, level=cfg.wpd_level, wavelet_name=cfg.wavelet)
+        return features.wpd_features(
+            windows, level=cfg.wpd_level, wavelet_name=cfg.wavelet,
+            reference_kernels=cfg.reference_kernels,
+        )
     per = eeg_data.WINDOWS_PER_MATRIX
     n_mat = max(1, -(-w // per))
     padded = frontend._wrap_pad(windows, n_mat * per) if n_mat * per != w else windows

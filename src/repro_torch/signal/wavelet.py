@@ -8,6 +8,12 @@ level -- the WPD features and MSPCA's DWT alike -- goes through
 ``kernels.wpd`` (K2 on a CUDA tensor: one launch for a whole packet tree
 or DWT). Synthesis is plain PyTorch in the
 reference's pad + static-slice polyphase form.
+
+``reference=True`` keeps the reference's pre-megabatch formulations, which
+the ``PipelineConfig(reference_kernels=True)`` leg runs: analysis level by
+level as a gather + matmul (on a CUDA tensor, K2's single-level launch,
+the TPU kernel's own contract, which tiles that gather layout) and
+synthesis as the scatter-add transpose.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels._route import on_cuda
 from repro_torch.kernels.wpd import ops as wpd_ops
 
 # Daubechies scaling (low-pass) filters, sum = sqrt(2).
@@ -52,11 +59,26 @@ def filters(name: str = "db4") -> tuple[torch.Tensor, torch.Tensor]:
     return h, g
 
 
+def _window_indices(n: int, taps: int, device=None) -> torch.Tensor:
+    """(n//2, taps) gather indices: row i reads x[(2i + k) mod n]."""
+    base = 2 * torch.arange(n // 2, device=device)[:, None]
+    return (base + torch.arange(taps, device=device)[None, :]) % n
+
+
 def analysis_step(
-    x: torch.Tensor, wavelet: str = "db4"
+    x: torch.Tensor, wavelet: str = "db4", *, reference: bool = False
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One level: x (..., N) -> (approx (..., N/2), detail (..., N/2))."""
-    return wpd_ops.wpd_level(x, *filters(wavelet))
+    """One level: x (..., N) -> (approx (..., N/2), detail (..., N/2)).
+    ``reference=True`` on a CPU tensor is the gather + matmul form: the
+    (..., N/2, L) window matrix times each filter."""
+    h, g = filters(wavelet)
+    if not reference or on_cuda(x, "analysis_step"):
+        return wpd_ops.wpd_level(x, h, g)
+    n = x.shape[-1]
+    if n % 2:
+        raise ValueError(f"signal length {n} must be even")
+    xw = x.to(torch.float32)[..., _window_indices(n, h.shape[0], x.device)]
+    return xw @ h, xw @ g
 
 
 def synthesis_step(
@@ -93,32 +115,65 @@ def synthesis_step_reference(
     oracle ``synthesis_step`` is tested against)."""
     h, g = (f.to(a.device) for f in filters(wavelet))
     n = 2 * a.shape[-1]
-    idx = (
-        2 * torch.arange(n // 2, device=a.device)[:, None]
-        + torch.arange(h.shape[0], device=a.device)[None, :]
-    ) % n  # (N/2, L)
+    idx = _window_indices(n, h.shape[0], a.device)  # (N/2, L)
     contrib = a[..., :, None] * h + d[..., :, None] * g  # (..., N/2, L)
     out = torch.zeros(a.shape[:-1] + (n,), dtype=a.dtype, device=a.device)
     return out.index_add_(-1, idx.reshape(-1), contrib.flatten(-2))
 
 
-def dwt(x: torch.Tensor, level: int, wavelet: str = "db4") -> list[torch.Tensor]:
+def dwt(
+    x: torch.Tensor, level: int, wavelet: str = "db4", *, reference: bool = False
+) -> list[torch.Tensor]:
     """Multi-level DWT of the last axis: [D1, D2, ..., D_level, A_level],
-    each scale its own contiguous tensor (one K2 launch on a CUDA tensor)."""
-    return wpd_ops.dwt_levels(x, *filters(wavelet), level)
+    each scale its own contiguous tensor (one K2 launch on a CUDA tensor).
+    ``reference=True`` goes level by level through the reference
+    ``analysis_step`` (one K2 launch a level on a CUDA tensor)."""
+    if not reference:
+        return wpd_ops.dwt_levels(x, *filters(wavelet), level)
+    coeffs = []
+    cur = x
+    for _ in range(level):
+        cur, d = analysis_step(cur, wavelet, reference=True)
+        coeffs.append(d)
+    coeffs.append(cur)
+    return coeffs
 
 
-def idwt(coeffs: list[torch.Tensor], wavelet: str = "db4") -> torch.Tensor:
-    """Inverse of ``dwt``."""
+def idwt(
+    coeffs: list[torch.Tensor], wavelet: str = "db4", *, reference: bool = False
+) -> torch.Tensor:
+    """Inverse of ``dwt``; ``reference=True`` synthesizes each level by the
+    scatter-add ``synthesis_step_reference``."""
+    step = synthesis_step_reference if reference else synthesis_step
     cur = coeffs[-1]
     for d in reversed(coeffs[:-1]):
-        cur = synthesis_step(cur, d, wavelet)
+        cur = step(cur, d, wavelet)
     return cur
 
 
-def wpd(x: torch.Tensor, level: int, wavelet: str = "db4") -> torch.Tensor:
+def wpd(
+    x: torch.Tensor, level: int, wavelet: str = "db4", *, reference: bool = False
+) -> torch.Tensor:
     """Wavelet packet decomposition: x (..., N) -> (..., 2**level,
     N // 2**level) terminal nodes in natural (Paley) order; every level
     splits every node (node 2i is the low branch of node i, 2i+1 the high
-    one). One K2 launch on a CUDA tensor."""
-    return wpd_ops.wpd_tree(x, *filters(wavelet), level)
+    one). One K2 launch on a CUDA tensor; ``reference=True`` goes level by
+    level through the reference ``analysis_step``."""
+    if not reference:
+        return wpd_ops.wpd_tree(x, *filters(wavelet), level)
+    lead, n = x.shape[:-1], x.shape[-1]
+    if n % (2**level) != 0:
+        raise ValueError(f"signal length {n} not divisible by 2**{level}")
+    nodes = x.unsqueeze(-2)
+    for _ in range(level):
+        a, d = analysis_step(nodes, wavelet, reference=True)
+        nodes = torch.stack([a, d], dim=-2).reshape(lead + (a.shape[-2] * 2, a.shape[-1]))
+    return nodes
+
+
+def wpd_reconstruct(nodes: torch.Tensor, wavelet: str = "db4") -> torch.Tensor:
+    """Inverse WPD: (..., 2**level, M) -> (..., 2**level * M)."""
+    while nodes.shape[-2] > 1:
+        pairs = nodes.reshape(nodes.shape[:-2] + (nodes.shape[-2] // 2, 2, nodes.shape[-1]))
+        nodes = synthesis_step(pairs[..., 0, :], pairs[..., 1, :], wavelet)
+    return nodes[..., 0, :]

@@ -14,6 +14,8 @@ mismatch against that margin.
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import os
 import pathlib
 
@@ -32,6 +34,7 @@ from repro_torch import convert
 from repro_torch.checkpoint import store
 from repro_torch.kernels.forest import ops as forest_ops
 from repro_torch.serving import api
+from repro_torch.signal import frontend
 
 # One intra-op thread: the suite runs in parallel workers on a shared
 # machine, where OpenMP barriers across two threads stall far longer
@@ -135,14 +138,13 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert engine.device.type == "cpu" and engine.program.feat_mean.device.type == "cpu"
 
 
-def test_engine_rejects_reference_kernels():
-    program = api.ScoringProgram.load(PROGRAM_DIR, device="cpu")
-    program = api.ScoringProgram(
-        program.packed, program.feat_mean, program.feat_std,
-        program.cfg._replace(reference_kernels=True),
-    )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.SeizureEngine(program, device="cpu")
+def test_restore_and_streaming_frontend_default_to_cuda(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.SeizureEngine.restore(str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        frontend.StreamingFrontend(api.PipelineConfig())
+    assert frontend.StreamingFrontend(api.PipelineConfig(), device="cpu").chunks_seen == 0
 
 
 # ---------------------------------------------------------------------------
@@ -202,12 +204,39 @@ def streams():
 
 
 def _run(mod, program, streams, **kw):
+    engine, head = _start(mod, program, streams, None, **kw)
+    return head + _resume(engine, streams)
+
+
+# Snapshots are taken after the third push, before its poll: patients 13
+# and 8 then hold the two slots with chunks queued, and patient 3 waits.
+_SNAP_ROUND = 2
+
+
+def _start(mod, program, streams, snapshot_dir, **kw):
+    """Open a two-slot engine and run ``_CUTS``'s push rounds up to and
+    including the push of round _SNAP_ROUND (snapshotting into
+    ``snapshot_dir`` there, if given). Returns the engine and the events so
+    far (the head)."""
     engine = mod.SeizureEngine(program, max_batch=2, **kw)
     sessions = {pid: engine.open_session(pid) for pid in streams}
-    events = []
-    for lo, hi in zip(_CUTS[:-1], _CUTS[1:]):
+    head = []
+    for r, (lo, hi) in enumerate(zip(_CUTS[:-1], _CUTS[1:])):
         for pid, s in sessions.items():
             s.push(streams[pid][lo:hi])
+        if r == _SNAP_ROUND:
+            if snapshot_dir is not None:
+                engine.snapshot(snapshot_dir, step=7)
+            return engine, head
+        head += engine.poll(drain=False)
+
+
+def _resume(engine, streams):
+    """The rest of the schedule from the snapshot point (the tail)."""
+    events = engine.poll(drain=False)
+    for lo, hi in zip(_CUTS[_SNAP_ROUND + 1:-1], _CUTS[_SNAP_ROUND + 2:]):
+        for pid in streams:
+            engine.session(pid).push(streams[pid][lo:hi])
         events += engine.poll(drain=False)
     return events + engine.poll()
 
@@ -284,27 +313,169 @@ def jax_events(jprogram, streams):
     return events
 
 
+_ALARM = {0: (3, 5), 2: (1, 1)}  # the alarm rule served at each overlap
+
+
+def _port_program(jp, **cfg):
+    program = convert.program_from_jax_arrays(jp._to_arrays(), device="cpu")
+    return dataclasses.replace(program, cfg=program.cfg._replace(**cfg)) if cfg else program
+
+
+@pytest.fixture(scope="module")
+def port_runs(jax_events, streams, tmp_path_factory):
+    """The port's runs on the CPU, one per (overlap, depth, megabatch),
+    each computed once for the file: (snapshot dir, head, tail). Each run's
+    engine snapshots itself at the snapshot point and runs on (a snapshot
+    leaves the engine as it was: test_snapshot_leaves_the_engine_unchanged)."""
+    cache = {}
+
+    def run(overlap, depth=3, megabatch=True):
+        key = overlap, depth, megabatch
+        if key not in cache:
+            jp, _ = jax_events(overlap, _ALARM[overlap])
+            directory = str(tmp_path_factory.mktemp("engine_snapshot"))
+            engine, head = _start(api, _port_program(jp), streams, directory,
+                                  replay_depth=depth, megabatch=megabatch, device="cpu")
+            cache[key] = directory, head, _resume(engine, streams)
+        return cache[key]
+
+    return run
+
+
+@pytest.fixture(scope="module")
+def port_events(port_runs):
+    """The port's uninterrupted events for (overlap, depth, megabatch)."""
+    def events(overlap, depth=3, megabatch=True):
+        _, head, tail = port_runs(overlap, depth, megabatch)
+        return head + tail
+
+    return events
+
+
 @pytest.mark.parametrize("depth,overlap,alarm", [
     (1, 0, (3, 5)), (3, 0, (3, 5)), (1, 2, (1, 1)), (3, 2, (1, 1)),
 ])
-def test_engine_events_match_jax(jax_events, streams, depth, overlap, alarm):
+def test_engine_events_match_jax(jax_events, port_events, streams, depth, overlap, alarm):
+    assert alarm == _ALARM[overlap]
     jp, want = jax_events(overlap, alarm)
-    program = convert.program_from_jax_arrays(jp._to_arrays(), device="cpu")
-    got = _run(api, program, streams, replay_depth=depth, device="cpu")
+    got = port_events(overlap, depth)
     assert sum(isinstance(e, api.ChunkScored) for e in got) == 9
     kinds = {type(e).__name__ for e in got}
     assert "AlarmRaised" in kinds and ("AlarmCleared" in kinds) == (alarm == (1, 1))
     if depth == 3:
         _assert_events_match(got, want, jp, streams)
         # the port's serial oracle emits the same events
-        serial = _run(api, program, streams, replay_depth=depth, megabatch=False,
-                      device="cpu")
-        _assert_events_match(serial, want, jp, streams)
+        _assert_events_match(port_events(overlap, depth, megabatch=False), want, jp, streams)
     else:
         got_p, want_p = _by_patient(got), _by_patient(want)
         assert got_p.keys() == want_p.keys() == streams.keys()
         for pid in streams:
             _assert_events_match(got_p[pid], want_p[pid], jp, streams)
+
+
+def test_reference_kernels_leg_emits_the_default_events(jax_events, streams):
+    """The reference_kernels leg (gather-form analysis level by level,
+    sample-major PCA with the masked reconstruction, scatter-add
+    synthesis) serves the same events as the default leg."""
+    jp, want = jax_events(0, _ALARM[0])
+    got = _run(api, _port_program(jp, reference_kernels=True), streams, replay_depth=3,
+               device="cpu")
+    _assert_events_match(got, want, jp, streams)
+
+
+# ---------------------------------------------------------------------------
+# Snapshot / restore
+# ---------------------------------------------------------------------------
+
+def _assert_identical(got, want):
+    """Byte-identical events: every field, window predictions and
+    ``preictal_frac`` included."""
+    assert [type(e).__name__ for e in got] == [type(e).__name__ for e in want]
+    for g, w in zip(got, want):
+        if isinstance(w, (api.ChunkScored, japi.ChunkScored)):
+            assert g[:5] + (g.program_version,) == w[:5] + (w.program_version,)
+            np.testing.assert_array_equal(g.window_preds, w.window_preds)
+        else:
+            assert tuple(g) == tuple(w)
+
+
+def test_snapshot_leaves_the_engine_unchanged(jax_events, port_events, streams):
+    jp, _ = jax_events(2, _ALARM[2])
+    _assert_identical(_run(api, _port_program(jp), streams, replay_depth=3, device="cpu"),
+                      port_events(2))
+
+
+@pytest.mark.parametrize("overlap", [0, 2])
+@pytest.mark.parametrize("megabatch", [True, False])
+def test_snapshot_restore_within_port(port_runs, streams, overlap, megabatch):
+    """Restored, the engine's tail is byte-identical to the live engine's,
+    so head + tail is the uninterrupted run."""
+    directory, head, live_tail = port_runs(overlap, megabatch=megabatch)
+    engine = api.SeizureEngine.restore(directory, device="cpu")
+    assert (engine.megabatch, engine.fe_width) == (megabatch, max(1, overlap))
+    assert [s and s.patient_id for s in engine._slots] == [13, 8]
+    assert [s.patient_id for s in engine._waiting] == [3] and engine.session(3).queued
+    assert engine.steps > 0 and engine.session(13).pending_chunks == 2
+    _assert_identical(_resume(engine, streams), live_tail)
+
+
+def test_megabatch_snapshot_restores_into_the_serial_step(port_runs, port_events,
+                                                          jax_events, streams):
+    """The snapshot holds votes and raw windows only, so the serial step
+    resumed from a megabatch snapshot continues exactly as an uninterrupted
+    serial engine."""
+    directory, head, _ = port_runs(2)
+    engine = api.SeizureEngine.restore(directory, megabatch=False, clock=lambda: 1e6,
+                                       device="cpu")
+    # Queued chunks keep their ages, rebased onto the new clock.
+    stamps = [t for s in engine._sessions.values() for t, _ in s.chunks]
+    assert len(stamps) == 4 and all(1e6 - 60 < t <= 1e6 for t in stamps)
+    tail = _resume(engine, streams)
+    _assert_identical(tail, port_events(2, megabatch=False)[len(head):])
+    jp, want = jax_events(2, _ALARM[2])
+    _assert_events_match(tail, want[len(head):], jp, streams)
+
+
+def test_jax_snapshot_restores_in_port(jax_events, streams, tmp_path):
+    jp, want = jax_events(0, _ALARM[0])
+    _, head = _start(japi, jp, streams, str(tmp_path), replay_depth=3)
+    engine = api.SeizureEngine.restore(str(tmp_path), device="cpu")
+    _assert_events_match(_resume(engine, streams), want[len(head):], jp, streams)
+
+
+def test_port_snapshot_restores_in_jax(port_runs, jax_events, streams):
+    directory, head, _ = port_runs(2)
+    jp, want = jax_events(2, _ALARM[2])
+    engine = japi.SeizureEngine.restore(directory)
+    assert engine.replay_depth == 3 and not engine.use_forest_kernel
+    _assert_events_match(_resume(engine, streams), want[len(head):], jp, streams)
+
+
+def test_restore_errors(port_runs, tmp_path):
+    for missing in (tmp_path / "missing", tmp_path / "empty"):
+        if missing.name == "empty":
+            missing.mkdir()
+        with pytest.raises(FileNotFoundError, match="no engine snapshots"):
+            api.SeizureEngine.restore(str(missing), device="cpu")
+    directory, _, _ = port_runs(2)
+    arrays = store.restore(directory, 7)
+
+    def resave(name, **leaves):
+        store.save(str(tmp_path / name), 0, dict(arrays, **leaves))
+        return str(tmp_path / name)
+
+    host = json.loads(arrays["host_json"].numpy().tobytes())
+    host["format"] = 2
+    bad = resave("format", host_json=np.frombuffer(json.dumps(host).encode(), np.uint8))
+    with pytest.raises(ValueError, match="format 2"):
+        api.SeizureEngine.restore(bad, device="cpu")
+    # A boundary one window wide is what an overlap-0 engine carries.
+    bad = resave("width", state__fe_boundary=arrays["state__fe_boundary"][:, :1])
+    with pytest.raises(ValueError, match="fe_boundary"):
+        api.SeizureEngine.restore(bad, device="cpu")
+    bad = resave("session", sess00000003__fe_boundary=arrays["sess00000003__fe_boundary"][:1])
+    with pytest.raises(ValueError, match="session 3"):
+        api.SeizureEngine.restore(bad, device="cpu")
 
 
 def test_engine_session_lifecycle_cpu(streams):

@@ -13,6 +13,8 @@ both packages as numpy arrays. Tolerances, with their reasons:
   * WPD features: compared in z-units (difference / per-feature std),
     <= 2e-3 (measured ~5e-4). Relative error is meaningless for
     features near zero, e.g. the skew of a symmetric node.
+  * Seam SNR (``worst_seam_snr_db``): within 1e-3 dB; overlaps whose
+    JAX values lie more than 2e-3 dB apart keep their order.
   * EEG generator: only statistics can match (the port draws from a
     torch.Generator): per-band power within 12% of the reference's,
     averaged over 32 draws of the per-call phases (the preictal theta
@@ -23,6 +25,7 @@ both packages as numpy arrays. Tolerances, with their reasons:
 from __future__ import annotations
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -160,6 +163,49 @@ def test_wpd_and_dwt_take_whole_trees_from_k2():
         assert c.is_contiguous() and torch.equal(c, w)
 
 
+@functools.partial(jax.jit, static_argnums=1)
+def _jax_reference_leg(x, levels):
+    a, d = jwavelet.analysis_step(x, "db4", reference=True)
+    coeffs = jwavelet.dwt(x, levels, reference=True)
+    return (a, d, coeffs, jwavelet.idwt(coeffs, reference=True),
+            jwavelet.wpd(x, 4, reference=True))
+
+
+def test_reference_wavelet_leg_matches_jax():
+    """analysis_step, dwt, idwt and wpd with reference=True: the gather +
+    matmul analysis level by level and the scatter-add synthesis."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(4, 3, 256)).astype(np.float32)
+    ja, jd, jcoeffs, jrec, jnodes = _jax_reference_leg(jnp.asarray(x), 5)
+    a, d = wavelet.analysis_step(_t(x), reference=True)
+    _close(a.numpy(), ja, 1e-5)
+    _close(d.numpy(), jd, 1e-5)
+    for got, want in zip((a, d), wavelet.analysis_step(_t(x))):
+        _close(got.numpy(), want.numpy(), 1e-5)
+    coeffs = wavelet.dwt(_t(x), 5, reference=True)
+    assert len(coeffs) == 6
+    for c, jc in zip(coeffs, jcoeffs):
+        _close(c.numpy(), jc, 1e-5)
+    rec = wavelet.idwt(coeffs, reference=True)
+    _close(rec.numpy(), jrec, 1e-5)
+    _close(rec.numpy(), x, 1e-5)
+    nodes = wavelet.wpd(_t(x), 4, reference=True)
+    assert nodes.shape == (4, 3, 16, 16)
+    _close(nodes.numpy(), jnodes, 1e-5)
+    _close(nodes.numpy(), wavelet.wpd(_t(x), 4).numpy(), 1e-5)
+
+
+def test_wpd_reconstruct_round_trip_and_matches_jax():
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(2, 3, 256)).astype(np.float32)
+    nodes = wavelet.wpd(_t(x), 3)
+    rec = wavelet.wpd_reconstruct(nodes)
+    assert rec.shape == x.shape
+    _close(rec.numpy(), x, 1e-5)
+    want = jax.jit(jwavelet.wpd_reconstruct)(jnp.asarray(nodes.numpy()))
+    _close(rec.numpy(), want, 1e-5)
+
+
 # ---------------------------------------------------------------------------
 # PCA (compared by reconstruction)
 # ---------------------------------------------------------------------------
@@ -190,6 +236,31 @@ def test_pca_fit_and_reconstruct(keep):
     _close(pca.reconstruct_T(stT, _t(x.T), keep).numpy(), recT, 1e-4)
     _close(pca.reconstruct_T(stT, _t(x.T), torch.tensor(keep)).numpy(), recT_masked, 1e-4)
     assert int(pca.kaiser_rule(st)) == int(kaiser)
+
+
+@functools.partial(jax.jit, static_argnums=1)
+def _jax_pca_more(x, keep):
+    st = jpca.fit(x)
+    scores = jpca.transform(st, x, keep)
+    return (scores, jpca.inverse_transform(st, scores), jpca.reconstruct(st, x, keep, masked=True),
+            jpca.n_components_for_variance(st, 0.9), jpca.n_components_for_variance(st))
+
+
+@pytest.mark.parametrize("keep", [2, 5])
+def test_pca_transform_inverse_and_masked_reconstruct(keep):
+    rng = np.random.default_rng(20 + keep)
+    x = _correlated(rng, 60, 10)
+    scores_j, back_j, masked_j, k90_j, k95_j = _jax_pca_more(jnp.asarray(x), keep)
+    st = pca.fit(_t(x))
+    scores = pca.transform(st, _t(x), keep)
+    assert scores.shape == scores_j.shape == (60, keep)
+    assert pca.transform(st, _t(x)).shape == (60, 10)
+    _close(pca.inverse_transform(st, scores).numpy(), back_j, 1e-4)
+    masked = pca.reconstruct(st, _t(x), keep, masked=True)
+    _close(masked.numpy(), masked_j, 1e-4)
+    _close(masked.numpy(), pca.reconstruct(st, _t(x), keep).numpy(), 1e-5)
+    assert int(pca.n_components_for_variance(st, 0.9)) == int(k90_j)
+    assert int(pca.n_components_for_variance(st)) == int(k95_j)
 
 
 def test_pca_sign_convention():
@@ -229,6 +300,93 @@ def test_denoise_bakshi_variant_matches():
     want = np.asarray(jmspca.denoise(jnp.asarray(x), **kw))
     got = mspca.denoise(_t(x), **kw).numpy()
     assert np.linalg.norm(got - want) <= 1e-4 * np.linalg.norm(want)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(keep=5),
+    dict(level=3, threshold=True, keep="kaiser", final_pca=True),
+    dict(level=3, threshold=True, keep=4, final_pca=True),
+], ids=["keep5", "bakshi", "threshold-keep4-final"])
+def test_reference_denoise_matches_jax(kw):
+    """denoise(reference_kernels=True): the sample-major fits and the
+    full-width masked reconstruction, per scale and in the final pass."""
+    rng = np.random.default_rng(15)
+    x = (np.cumsum(rng.normal(size=(256, 12)), axis=0)
+         + rng.normal(scale=0.5, size=(256, 12))).astype(np.float32)
+    want = np.asarray(jmspca.denoise(jnp.asarray(x), reference_kernels=True, **kw))
+    got = mspca.denoise(_t(x), reference_kernels=True, **kw).numpy()
+    assert np.linalg.norm(got - want) <= 1e-4 * np.linalg.norm(want)
+    default = mspca.denoise(_t(x), **kw).numpy()
+    assert np.linalg.norm(got - default) <= 1e-4 * np.linalg.norm(default)
+
+
+def test_hard_threshold_keeps_only_large_coefficients():
+    d = _t([[0.5, -2.0, 1.0], [3.0, -0.1, -1.2]])
+    thr = math.sqrt(2.0 * math.log(8))  # sigma 1 over 8 samples: ~2.04
+    got = mspca._hard_threshold(d, torch.tensor(1.0), n=8)
+    want = np.asarray(jmspca._hard_threshold(jnp.asarray(d.numpy()), jnp.float32(1.0), 8))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), np.where(np.abs(d.numpy()) > thr, d.numpy(), 0))
+
+
+@pytest.mark.parametrize("halo_windows", [None, 2])
+def test_reference_denoise_windows_matches_jax(small_stream, halo_windows):
+    ch = small_stream[:60]
+    halo = small_stream[60:60 + halo_windows] if halo_windows else None
+    want = np.asarray(jmspca.denoise_windows(
+        jnp.asarray(ch), halo=None if halo is None else jnp.asarray(halo),
+        reference_kernels=True,
+    ))
+    got = mspca.denoise_windows(_t(ch), halo=None if halo is None else _t(halo),
+                                reference_kernels=True).numpy()
+    assert np.linalg.norm(got - want) <= 1e-4 * np.linalg.norm(want)
+
+
+_SEAM_PER = 16
+_SEAM_OVERLAPS = (0, 1, 2, 4)
+
+
+@pytest.fixture(scope="module")
+def seam_snr():
+    """{overlap: (port dB, JAX dB, port chunked, JAX chunked)} on a
+    chunk-aligned stream of 4 chunks of 16 windows of (3, 256): a
+    window-varying common rhythm under noise, so the per-chunk PCA bases
+    differ from the one-matrix basis at the seams."""
+    rng = np.random.default_rng(17)
+    t = np.arange(256, dtype=np.float32)
+    amp = 1.0 + np.sin(np.arange(64) / 6.0)[:, None, None]
+    stream = (amp * np.sin(t / 7.0 + rng.normal(size=(64, 3, 1)))
+              + 0.6 * rng.normal(size=(64, 3, 256))).astype(np.float32)
+    ref = mspca.denoise_windows(_t(stream))
+    jref = jmspca.denoise_windows(jnp.asarray(stream))
+    out = {}
+    for ov in _SEAM_OVERLAPS:
+        got = mspca.denoise_stream_chunked(_t(stream), ov, per=_SEAM_PER)
+        want = jmspca.denoise_stream_chunked(jnp.asarray(stream), ov, per=_SEAM_PER)
+        out[ov] = (mspca.worst_seam_snr_db(ref, got, per=_SEAM_PER),
+                   jmspca.worst_seam_snr_db(jref, want, per=_SEAM_PER),
+                   got.numpy(), np.asarray(want))
+    return out
+
+
+@pytest.mark.parametrize("overlap", _SEAM_OVERLAPS)
+def test_denoise_stream_chunked_and_seam_snr_match_jax(seam_snr, overlap):
+    db, jdb, got, want = seam_snr[overlap]
+    assert got.shape == want.shape == (64, 3, 256)
+    assert np.linalg.norm(got - want) <= 1e-4 * np.linalg.norm(want)
+    assert abs(db - jdb) <= 1e-3, (db, jdb)
+
+
+def test_seam_snr_orders_overlaps_as_jax(seam_snr):
+    for a in _SEAM_OVERLAPS:
+        for b in _SEAM_OVERLAPS:
+            _, ja, _, _ = seam_snr[a]
+            _, jb, _, _ = seam_snr[b]
+            if ja - jb > 2e-3:
+                assert seam_snr[a][0] > seam_snr[b][0], {
+                    ov: seam_snr[ov][:2] for ov in _SEAM_OVERLAPS}
+    with pytest.raises(ValueError, match="aligned"):
+        mspca.denoise_stream_chunked(_t(np.zeros((20, 3, 256))), 0, per=_SEAM_PER)
 
 
 def test_snr_db_matches():
@@ -286,9 +444,97 @@ def test_chunk_features_wrap_pad_at_30_windows(small_stream, overlap):
     assert _z_err(got.numpy(), want) <= 2e-3
 
 
-def test_reference_kernels_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        frontend.chunk_features(torch.zeros(60, 3, 512), CFG._replace(reference_kernels=True))
+@pytest.mark.parametrize("overlap", [0, 2])
+def test_frontend_state_arrays_match_jax(overlap):
+    """The flat {"boundary", "phase"} layout of a single stream and of a
+    batch: the same keys, dtypes and values as the reference's, each
+    package loads the other's, and both raise the same ValueErrors."""
+    rng = np.random.default_rng(30 + overlap)
+    bw = frontend.boundary_width(overlap)
+    cases = (
+        (rng.normal(size=(bw, 3, 16)).astype(np.float32), np.array(4, np.int32)),
+        (rng.normal(size=(2, bw, 3, 16)).astype(np.float32), np.array([1, 5], np.int32)),
+    )
+    for boundary, phase in cases:
+        want = jfrontend.state_to_arrays(
+            jfrontend.FrontendState(jnp.asarray(boundary), jnp.asarray(phase)))
+        got = frontend.state_to_arrays(
+            frontend.FrontendState(_t(boundary), torch.from_numpy(phase)))
+        assert got.keys() == want.keys() == {"boundary", "phase"}
+        for k in got:
+            assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+            np.testing.assert_array_equal(got[k], want[k])
+        mine = frontend.state_from_arrays(want, width=bw, device="cpu")
+        theirs = jfrontend.state_from_arrays(got, width=bw)
+        for t, j in zip(mine, theirs):
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+        assert mine.boundary.dtype == torch.float32 and mine.phase.dtype == torch.int32
+    flat = {"boundary": np.zeros((3, 16), np.float32), "phase": np.zeros((), np.int32)}
+    for load in (lambda a, w: frontend.state_from_arrays(a, width=w, device="cpu"),
+                 lambda a, w: jfrontend.state_from_arrays(a, width=w)):
+        with pytest.raises(ValueError, match="layout mismatch"):
+            load(flat, None)
+        with pytest.raises(ValueError, match="different overlap"):
+            load(got, bw + 1)
+
+
+# The reference_kernels leg at overlap 2, fed as pieces that each complete
+# at most one chunk (so the JAX StreamingFrontend compiles its scan once).
+LEG = dict(reference_kernels=True, overlap=2)
+_FEED_CUTS = (0, 37, 95, 151, 180)
+
+
+@pytest.fixture(scope="module")
+def stream3():
+    """Three full-width chunks (180, 3, 2048) from the JAX generator."""
+    return np.concatenate([
+        np.asarray(jeeg.generate_windows(jax.random.PRNGKey(20 + i), jnp.asarray(3), r, 60))
+        for i, r in enumerate((jeeg.INTERICTAL, jeeg.PREICTAL, jeeg.PREICTAL))
+    ])
+
+
+@pytest.fixture(scope="module")
+def jax_leg_features(stream3):
+    """The JAX StreamingFrontend's feature rows of the leg, one entry per
+    piece of _FEED_CUTS."""
+    sf = jfrontend.StreamingFrontend(JCFG._replace(**LEG))
+    return [sf.feed(stream3[lo:hi]) for lo, hi in zip(_FEED_CUTS[:-1], _FEED_CUTS[1:])]
+
+
+def test_streaming_frontend_resumes_bit_equal(stream3, jax_leg_features):
+    """A state_dict taken between chunk boundaries resumes a new
+    StreamingFrontend bit-equal to the uninterrupted one, whose features
+    are process_windows' of the chunk-aligned stream and within 2e-3
+    z-units of the JAX StreamingFrontend's."""
+    cfg = CFG._replace(**LEG)
+    pieces = [stream3[lo:hi] for lo, hi in zip(_FEED_CUTS[:-1], _FEED_CUTS[1:])]
+    full = frontend.StreamingFrontend(cfg, device="cpu")
+    outs = [full.feed(p) for p in pieces[:2]]
+    saved = full.state_dict()
+    assert (full.chunks_seen, full.pending_windows) == (1, 35)
+    assert saved["boundary"].shape == (2, 3, 2048) and saved["buf"].shape == (35, 3, 2048)
+    resumed = frontend.StreamingFrontend(cfg, device="cpu")
+    resumed.load_state_dict(saved)
+    outs += [full.feed(p) for p in pieces[2:]]
+    tail = np.concatenate([resumed.feed(p) for p in pieces[2:]])
+    assert [o.shape[0] for o in outs] == [0, 60, 60, 60]
+    np.testing.assert_array_equal(tail, np.concatenate(outs[2:]))
+    assert resumed.chunks_seen == full.chunks_seen == 3
+    got = np.concatenate(outs)
+    np.testing.assert_array_equal(got, pipeline.process_windows(_t(stream3), cfg).numpy())
+    assert _z_err(got, np.concatenate(jax_leg_features)) <= 2e-3
+    with pytest.raises(ValueError, match="different overlap"):
+        frontend.StreamingFrontend(CFG, device="cpu").load_state_dict(saved)
+
+
+def test_reference_leg_chunk_features_match_jax(stream3, jax_leg_features):
+    """One chunk of the leg from a stream start (zero halo) and the next
+    with its raw halo, against the JAX leg's, in z-units."""
+    cfg = CFG._replace(**LEG)
+    first = frontend.chunk_features(_t(stream3[:60]), cfg)
+    second = frontend.chunk_features(_t(stream3[60:120]), cfg, halo=_t(stream3[58:60]))
+    assert _z_err(first.numpy(), jax_leg_features[1]) <= 2e-3
+    assert _z_err(second.numpy(), jax_leg_features[2]) <= 2e-3
 
 
 @pytest.mark.parametrize("overlap", [0, 2])
