@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of the seizure-scoring, training, dense LM
-serving and hybrid LM serving paths on one CUDA card.
+"""Drive the PyTorch port of the seizure-scoring, training (emulated
+and over torch.distributed), dense LM serving and hybrid LM serving paths
+on one CUDA card.
 
 Run from the root of a checkout, with no arguments:
 
@@ -88,6 +89,32 @@ Phases (any failure exits non-zero):
      differing only at routing margin < 1e-3. A retrain on fresh shards is swapped into the running engine
      mid-stream; version stamps and the composite old/new alarm oracle
      must be exact.
+  6c. Distributed training, one process per map shard
+     (``repro_torch.launch.mesh.spawn_world``), on phase 6's training set
+     at full width (default ``PipelineConfig``, F = 288, windows of 3 x
+     2048). a: a world of one nccl rank on cuda:0: ``fit_mapreduce(mesh=)``
+     (the process's first fit, and again after ``n_shards=1``) must equal
+     ``n_shards=1`` in every leaf, bit for bit. b: a world of two gloo
+     ranks, both on cuda:0, each fitting twice from phase 6's generator
+     state just before its fit (taken without a draw; the first fit of a
+     fresh process, then a warm one): ``pipeline.fit(mesh=)`` must equal
+     phase 6's ``n_shards=2`` fit in every leaf (forest, feat_mean,
+     feat_std) on both ranks, both times (else the first stage that
+     differs is named), and each rank must launch K2 twice per chunk of
+     its shard, K4 once per level and K3 at least once a fit
+     ("distributed b" lines: each rank's fit seconds, its stage seconds
+     (features, moments gather, rotation prep, grower, union gather) and
+     each gather's ms, then the slower rank's fit against phase 6's
+     emulated fit, beside the card's name and power limit; two ranks on
+     one card measure contention, not scaling). c: in the same world, ``process_recording_mapreduce`` at
+     overlap 0 on 4 chunks must equal ``process_windows`` of each rank's
+     shard, and ``shuffle_by_key`` on CUDA tensors with skewed keys (70%
+     of each shard's rows to shard 0, past a bucket's room) the routing
+     computed on the host. d: ``python -m repro_torch.launch.train_forest
+     --devices 2 --backend gloo --trees 10 --depth 6 --bins 32`` as a
+     subprocess must exit 0 (its ranks serve the union forest through K1
+     and swap in a distributed retrain). The mesh fits' launches join the
+     ``kernels`` line.
   7. LM serving at the full width of qwen3-0.6b (28 layers, 751.6 M
      parameters drawn from a seeded generator, bf16 compute). K5
      flash_attention against its plain version in the model's layout with
@@ -141,7 +168,8 @@ Phases (any failure exits non-zero):
      traces of one prefill and one decode step, with K6's share; the
      prefill copies no tensor of B H S N elements with a head axis.
   9. A ``kernels`` JSON line (K1-K6; launches summed over the counted
-     runs of phases 3, 4b and 6-8), the script's seconds, the card line,
+     runs of phases 3, 4b, 6, 6c (every rank's mesh fit), 7 and 8), the
+     script's seconds, the card line,
      and the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -1671,9 +1699,11 @@ def serve_timeline(engine, patient, windows, lo, hi) -> list:
     return [e for e in events if isinstance(e, api.ChunkScored)]
 
 
-def training_phase(gen, committed) -> tuple[dict, dict]:
-    """Phase 6. Returns the K4 rows and every kernel's launches in the
-    first fit."""
+def training_phase(gen, committed) -> tuple[dict, dict, dict]:
+    """Phase 6. Returns the K4 rows, every kernel's launches in the first
+    fit, and what phase 6c compares with: the training set, the
+    generator's state just before the first fit, that fit and its
+    seconds."""
     import tempfile
 
     import torch
@@ -1687,6 +1717,7 @@ def training_phase(gen, committed) -> tuple[dict, dict]:
     print(f"train data: {n_train} windows {tuple(rec.windows.shape[1:])} "
           f"({rec.windows.numel() * 4 / 1e6:.1f} MB), {int(rec.labels.sum())} preictal, "
           f"cfg {cfg}")
+    fit_state = gen.get_state()  # phase 6c starts its ranks from here (no draw)
     reset_counts()
     fitted, stages, captured = timed_fit(gen, rec, cfg)
     counts = launch_counts()
@@ -1781,7 +1812,318 @@ def training_phase(gen, committed) -> tuple[dict, dict]:
     print(f"retrain + swap: refit in {stages2['fit']:.3f} s; v{version} live after chunk "
           f"{k_swap}/{n_chunks}; version stamps and composite alarms exact ({changed} chunk "
           "votes differ between the programs)")
-    return rows, counts
+    return rows, counts, {"rec": rec, "state": fit_state, "fitted": fitted,
+                          "fit_s": stages["fit"]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 6c: distributed training, one process per map shard
+# ---------------------------------------------------------------------------
+
+DIST_STAGES = ("features", "moments gather", "rotation prep", "grower", "union gather")
+SHUFFLE_ROWS = 4096   # rows per shard of the shuffle check (16 floats each)
+SHUFFLE_SKEW = 0.7    # share of every shard's rows keyed to shard 0
+
+
+def fit_leaves(fitted) -> dict:
+    """Every leaf of a fitted pipeline or a DistributedFitResult, by name."""
+    return {"rotation": fitted.forest.rotation, **fitted.forest.trees._asdict(),
+            "feat_mean": fitted.feat_mean, "feat_std": fitted.feat_std}
+
+
+def rank_inputs(device, windows, labels, state):
+    """Phase 6's training set on this rank's device, and a generator on it
+    in the state phase 6's generator had just before its fit. The kernel
+    library is loaded and cuSOLVER initialized first, as the parent's are
+    before its timed runs."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.signal import eeg_data
+
+    build.load()
+    torch.linalg.eigh(torch.eye(8, device=device))
+
+    rec = eeg_data.Recording(torch.from_numpy(windows).to(device),
+                             torch.from_numpy(labels).to(device))
+    gen = torch.Generator(device=device)
+    gen.set_state(torch.from_numpy(state))
+    return rec, gen
+
+
+def timed_mesh_fit(fit) -> tuple:
+    """``fit()``, one rank's mesh fit, with the kernel counts set to 0 just
+    before and read just after: (result, {"wall": s, "stages": {stage: s},
+    "gathers": [(stage, ms)], "counts": launches}). Every stage clock and
+    gather timer synchronizes the card."""
+    import torch
+
+    from repro_torch.core import decision_tree as dt
+    from repro_torch.core import mapreduce as mr
+    from repro_torch.core import rotation_forest as rf
+    from repro_torch.signal import pipeline
+
+    stages = dict.fromkeys(DIST_STAGES, 0.0)
+    gathers = []
+    gather = mr.all_gather_tree
+
+    def timed_gather(tree, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gather(tree, group)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        label = "union gather" if isinstance(tree, rf.RotationForestParams) else "moments gather"
+        stages[label] += sec
+        gathers.append((label, sec * 1e3))
+        return out
+
+    with contextlib.ExitStack() as stack:
+        for owner, name, label in ((pipeline, "process_windows", "features"),
+                                   (rf, "_prepare_trees", "rotation prep"),
+                                   (dt, "fit_forest_binned", "grower")):
+            stack.enter_context(stage_clock(stages, owner, name, label))
+        mr.all_gather_tree = timed_gather
+        stack.callback(setattr, mr, "all_gather_tree", gather)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    return out, {"wall": wall, "stages": stages, "gathers": gathers, "counts": counts}
+
+
+def nccl_rank(rank, device, windows, labels, state) -> dict:
+    """Phase 6c a, a world of one nccl rank: fit_mapreduce(mesh=) on phase
+    6's training set in a fresh process, n_shards=1 from the same
+    generator state, and the mesh fit again (warm)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import forest_trainer as ft
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.signal import pipeline
+
+    cfg = pipeline.PipelineConfig()
+    mesh = mesh_lib.make_host_mesh(data=1, device_type=device.type)
+
+    def fit(rec, gen, **mode):
+        return ft.fit_mapreduce(gen, rec.windows, rec.labels, cfg.forest,
+                                feature_fn=lambda w: pipeline.process_windows(w, cfg), **mode)
+
+    def mesh_fit():
+        rec, gen = rank_inputs(device, windows, labels, state)
+        return timed_mesh_fit(lambda: fit(rec, gen, mesh=mesh))
+
+    cold = mesh_fit()
+    rec, gen = rank_inputs(device, windows, labels, state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = fit_leaves(fit(rec, gen, n_shards=1))
+    torch.cuda.synchronize()
+    local_s = time.perf_counter() - t0
+    warm = mesh_fit()
+    differ = sorted({k for got, _ in (cold, warm) for k, v in fit_leaves(got).items()
+                     if not torch.equal(v, want[k])})
+    return dict(infos=[cold[1], warm[1]], device=str(device), backend=dist.get_backend(),
+                differ=differ, trees=int(warm[0].forest.rotation.shape[0]), local_s=local_s)
+
+
+def shuffle_inputs():
+    """Two shards' (SHUFFLE_ROWS, 16) values and skewed keys on the host,
+    from a generator of their own: each shard keys ~SHUFFLE_SKEW of its
+    rows to shard 0 (even keys), past a bucket's room, and the rest to
+    shard 1 (odd keys)."""
+    import torch
+
+    g = torch.Generator().manual_seed(SEED + 60)
+    values = torch.randn((2, SHUFFLE_ROWS, 16), generator=g)
+    k = torch.randint(0, 1 << 20, (2, SHUFFLE_ROWS), generator=g)
+    to_one = torch.rand((2, SHUFFLE_ROWS), generator=g) >= SHUFFLE_SKEW
+    return values, (2 * k + to_one).to(torch.int32)
+
+
+def routed_on_host(values, keys, dest: int) -> np.ndarray:
+    """What shard ``dest`` must receive, row by row on the host: from each
+    source shard in order, its first bucket of rows keyed to dest (local
+    order), zero rows after them."""
+    v, k = values.numpy(), keys.numpy().astype(np.int64)
+    n_shards, rows = k.shape
+    bucket = rows // n_shards
+    out = np.zeros((n_shards * bucket, v.shape[-1]), np.float32)
+    for s in range(n_shards):
+        mine = [i for i in range(rows) if k[s, i] % n_shards == dest][:bucket]
+        out[s * bucket : s * bucket + len(mine)] = v[s, mine]
+    return out
+
+
+def gloo_rank(rank, device, windows, labels, state) -> dict:
+    """Phase 6c b and c, one of two gloo ranks sharing the card:
+    pipeline.fit(mesh=) from phase 6's generator state, twice (the first
+    in a fresh process, the second warm), this rank's shard features,
+    process_recording_mapreduce on 4 chunks against process_windows of
+    each shard, and shuffle_by_key on CUDA tensors."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import mapreduce as mr
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.signal import eeg_data, pipeline
+
+    cfg = pipeline.PipelineConfig()
+    mesh = mesh_lib.make_host_mesh(data=2, device_type=device.type)
+    fits = []
+    for _ in range(2):
+        rec, gen = rank_inputs(device, windows, labels, state)
+        fits.append(timed_mesh_fit(lambda: pipeline.fit(gen, rec, cfg, mesh=mesh)))
+    n = rec.windows.shape[0] // 2
+    shard_features = pipeline.process_windows(rec.windows[rank * n : (rank + 1) * n], cfg)
+
+    per = eeg_data.WINDOWS_PER_MATRIX
+    sub = eeg_data.Recording(rec.windows[: 4 * per], rec.labels[: 4 * per])
+    feats = pipeline.process_recording_mapreduce(mesh, sub, cfg._replace(overlap=0))
+    want = torch.cat([pipeline.process_windows(w, cfg) for w in sub.windows.chunk(2)])
+
+    values, keys = shuffle_inputs()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = mr.shuffle_by_key(values[rank].to(device), keys[rank].to(device), mesh, 2)
+    torch.cuda.synchronize()
+    shuffle_ms = (time.perf_counter() - t0) * 1e3
+    routed = routed_on_host(values, keys, rank)
+    to_me = int(sum(int((keys[s].long() % 2 == rank).sum()) for s in range(2)))
+    return dict(
+        infos=[info for _, info in fits], device=str(device), backend=dist.get_backend(),
+        fitted=[fitted for fitted, _ in fits], shard_features=shard_features, features_equal=bool(torch.equal(feats, want)),
+        features_shape=tuple(feats.shape), shuffle_equal=bool(np.array_equal(got.cpu().numpy(), routed)),
+        shuffle_ms=shuffle_ms, shuffle_keyed=to_me, shuffle_rows=int(got.shape[0]),
+        shuffle_on=str(got.device),
+    )
+
+
+def first_differing_stage(rank: int, res: dict, fitted, phase6: dict, cfg) -> str:
+    """The first stage whose output differs between rank ``rank``'s fit
+    ``fitted`` and its emulated shard in phase 6's fit."""
+    import torch
+
+    from repro_torch.signal import pipeline
+
+    rec = phase6["rec"]
+    n = rec.windows.shape[0] // 2
+    emulated = pipeline.process_windows(rec.windows[rank * n : (rank + 1) * n], cfg).cpu()
+    got, want = fit_leaves(fitted), fit_leaves(phase6["fitted"])
+    if not torch.equal(res["shard_features"], emulated):
+        return "features (process_windows of the shard)"
+    if not (torch.equal(got["feat_mean"], want["feat_mean"].cpu())
+            and torch.equal(got["feat_std"], want["feat_std"].cpu())):
+        return "global moments"
+    if not torch.equal(got["rotation"], want["rotation"].cpu()):
+        return "rotation prep"
+    return "grower"
+
+
+def distributed_phase(phase6: dict, smi: str) -> dict[str, int]:
+    """Phase 6c. Returns the kernels' launches in the ranks' mesh fits."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.signal import eeg_data, pipeline
+
+    cfg = pipeline.PipelineConfig()
+    rec = phase6["rec"]
+    args = (rec.windows.cpu().numpy(), rec.labels.cpu().numpy(), phase6["state"].numpy())
+    launches: dict[str, int] = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def stages(info) -> str:
+        return (f"{info['wall']:.3f} s (" + ", ".join(
+            f"{k} {v:.3f} s" for k, v in info["stages"].items()) + "; gathers " + ", ".join(
+            f"{k} {ms:.2f} ms" for k, ms in info["gathers"]) + ")")
+
+    # a. One nccl rank: the mesh fit equals n_shards=1 in every leaf.
+    t0 = time.perf_counter()
+    (one,) = mesh_lib.spawn_world(nccl_rank, 1, backend="nccl", device="cuda", args=args,
+                                  timeout_s=600.0).check()
+    print(f"distributed a: a world of 1 {one['backend']} rank on {one['device']}: "
+          f"fit_mapreduce(mesh=) of {one['trees']} trees, first fit of the process "
+          f"{stages(one['infos'][0])}; n_shards=1 next {one['local_s']:.3f} s; the mesh fit "
+          f"again {stages(one['infos'][1])}; both mesh fits "
+          f"{'equal to' if not one['differ'] else 'DIFFERENT from'} n_shards=1 in every leaf, "
+          f"bit for bit; launches a fit {one['infos'][1]['counts']}; world "
+          f"{time.perf_counter() - t0:.1f} s; card {smi}")
+    if one["differ"]:
+        fail(f"nccl mesh of 1: leaves {one['differ']} differ from n_shards=1")
+    for info in one["infos"]:
+        add(info["counts"])
+
+    # b, c. Two gloo ranks on one card: pipeline.fit(mesh=) equals phase 6's
+    # n_shards=2 fit bit for bit, in a fresh process and warm.
+    t0 = time.perf_counter()
+    ranks = mesh_lib.spawn_world(gloo_rank, 2, backend="gloo", device="cuda", args=args,
+                                 timeout_s=600.0).check()
+    world_s = time.perf_counter() - t0
+    want = {k: v.cpu() for k, v in fit_leaves(phase6["fitted"]).items()}
+    n_chunks = rec.windows.shape[0] // eeg_data.WINDOWS_PER_MATRIX // 2
+    for rank, res in enumerate(ranks):
+        for i, (fitted, info) in enumerate(zip(res["fitted"], res["infos"])):
+            got = fit_leaves(fitted)
+            differ = [k for k in want if not torch.equal(got[k], want[k])]
+            c = info["counts"]
+            print(f"distributed b: rank {rank} ({res['backend']}, {res['device']}), "
+                  f"{('first fit of the process', 'second fit')[i]}: {stages(info)}; "
+                  f"launches {c}; card {smi}")
+            if differ:
+                fail(f"rank {rank}, fit {i + 1}: leaves {differ} differ from phase 6's "
+                     f"n_shards=2 fit; first differing stage: "
+                     f"{first_differing_stage(rank, res, fitted, phase6, cfg)}")
+            if (c["wpd_level"] != 2 * n_chunks or c["histogram"] != cfg.forest.depth
+                    or not c["gram"]):
+                fail(f"rank {rank} launched {c}: expected K2 {2 * n_chunks} (2 a chunk of "
+                     f"its shard), K4 {cfg.forest.depth} (1 a level), K3 at least once")
+            add(c)
+    walls = [max(res["infos"][i]["wall"] for res in ranks) for i in range(2)]
+    print(f"distributed b: pipeline.fit(mesh=) over 2 gloo ranks sharing {smi}: "
+          f"{walls[0]:.3f} s first, {walls[1]:.3f} s second (the slower rank's) against "
+          f"phase 6's emulated n_shards=2 fit {phase6['fit_s']:.3f} s; every leaf (forest, "
+          f"feat_mean, feat_std) of both fits equal to phase 6's bit for bit on both ranks; "
+          f"world {world_s:.1f} s")
+    for rank, res in enumerate(ranks):
+        print(f"distributed c: rank {rank}: process_recording_mapreduce at overlap 0 on 4 "
+              f"chunks {res['features_shape']} {'==' if res['features_equal'] else '!='} "
+              f"process_windows of each shard; shuffle_by_key on {res['shuffle_on']} "
+              f"({res['shuffle_keyed']} rows keyed here, {res['shuffle_rows']} received "
+              f"slots) {'==' if res['shuffle_equal'] else '!='} the host routing, "
+              f"{res['shuffle_ms']:.2f} ms")
+        if not (res["features_equal"] and res["shuffle_equal"]):
+            fail(f"rank {rank}: process_recording_mapreduce or shuffle_by_key disagrees")
+
+    # d. The launcher's mesh job: train, serve through K1, retrain, swap.
+    with tempfile.TemporaryDirectory(prefix="seizure_ckpt_") as save_dir:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train_forest", "--devices", "2",
+               "--backend", "gloo", "--trees", "10", "--depth", "6", "--bins", "32",
+               "--save-dir", save_dir]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=600)
+    for line in proc.stdout.splitlines():
+        if line.startswith(("[train]", "[check]", "[retrain]", "[swap]")):
+            print(f"distributed d: launcher: {line}")
+    print(f"distributed d: {' '.join(cmd[1:-2])} exited {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        fail(f"the launcher's --devices 2 run exited {proc.returncode}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2642,9 +2984,15 @@ def main() -> int:
     trace_step(program, traffic)
 
     # Phase 6.
-    hist_rows, fit_counts = training_phase(gen, program)
+    hist_rows, fit_counts, phase6 = training_phase(gen, program)
     rows.update(hist_rows)
     launches = {k: launches.get(k, 0) + fit_counts[k] for k in fit_counts}
+
+    # Phase 6c.
+    t0 = time.perf_counter()
+    for k, n in distributed_phase(phase6, smi).items():
+        launches[k] += n
+    print(f"phase 6c (distributed training): {time.perf_counter() - t0:.1f} s")
 
     # Phase 7.
     flash_rows, launches["flash_attention"] = lm_phase(gen)

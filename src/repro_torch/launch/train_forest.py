@@ -1,9 +1,9 @@
 """Train -> serve -> retrain -> hot-swap: the paper's full loop in one
 command, on the port (the twin of ``repro.launch.train_forest``).
 
-Trains a rotation forest MapReduce-style on synthetic EEG (each of
-``--shards`` emulated map shards denoises, featurizes and fits a
-sub-forest; global feature moments; union reduce), freezes it into a
+Trains a rotation forest MapReduce-style on synthetic EEG (each map
+shard denoises, featurizes and fits a sub-forest; global feature
+moments; union reduce), freezes it into a
 ``ScoringProgram`` through the checkpoint store, loads it back, streams a
 held-out chronological timeline through a ``SeizureEngine`` in
 chunk-unaligned pieces and checks the served alarms against
@@ -15,8 +15,19 @@ mismatch.
   PYTHONPATH=src python -m repro_torch.launch.train_forest --device cpu \\
       --trees 4 --depth 4 --bins 8 --train-chunks 4 --hours-interictal 0
 
-The reference's ``--devices`` (a real mesh) is not ported: ``--shards``
-runs the map shards one after the other on ``--device``. The reference
+``--shards S`` runs the S map shards one after the other on ``--device``;
+``--devices N --backend {nccl,gloo}`` runs the real mesh job instead: N
+ranks over ``torch.distributed`` (``launch.mesh.spawn_world``), each
+running this whole program on its own device with the same seeds (both
+fits, serving and the checks), rank 0 writing the checkpoints and
+printing. ``nccl`` needs a card per rank; ``gloo`` also serves ranks that
+share a card, or CPU ranks with ``--device cpu``:
+
+  PYTHONPATH=src python -m repro_torch.launch.train_forest --device cpu \\
+      --devices 2 --backend gloo --trees 4 --depth 4 --bins 8 \\
+      --train-chunks 4 --hours-interictal 0
+
+The exit code is 1 if any rank fails or any check fails. The reference
 also counts recompiles across the swap; the port runs eagerly and has no
 compile budget yet (ROADMAP.md queue 1, "Static checks for the port").
 """
@@ -24,14 +35,18 @@ compile budget yet (ROADMAP.md queue 1, "Static checks for the port").
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import sys
 import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.rotation_forest import RotationForestConfig
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.serving import ChunkScored, ScoringProgram, SeizureEngine
 from repro_torch.signal import eeg_data, pipeline
 
@@ -41,10 +56,16 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def main(argv: list[str] | None = None) -> int:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--patient", type=int, default=3)
-    ap.add_argument("--shards", type=int, default=2, help="emulated map shards")
+    ap.add_argument("--shards", type=int, default=2,
+                    help="map shards, emulated one after the other (unless --devices)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="ranks of a real torch.distributed mesh job, one map shard "
+                         "each (0 = emulate --shards in one process)")
+    ap.add_argument("--backend", choices=mesh_lib.BACKENDS, default=None,
+                    help="the mesh job's backend; required with --devices")
     ap.add_argument("--trees", type=int, default=8)
     ap.add_argument("--depth", type=int, default=5)
     ap.add_argument("--bins", type=int, default=16)
@@ -65,10 +86,59 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--save-dir", default=None,
                     help="ScoringProgram checkpoint dir (default: a temp dir)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; with --devices, the ranks' device type")
+    return ap
 
-    device = torch.device(args.device)
+
+def main(argv: list[str] | None = None) -> int:
+    ap = _parser()
+    args = ap.parse_args(argv)
+    if args.devices <= 0:
+        return run(args)
+    if args.backend is None:
+        ap.error("--devices needs --backend nccl or --backend gloo")
+    # One checkpoint directory for the world: rank 0 writes, every rank reads.
+    args.save_dir = args.save_dir or tempfile.mkdtemp(prefix="seizure_ckpt_")
+    world = mesh_lib.spawn_world(
+        _rank_main, args.devices, backend=args.backend, device=args.device, args=(args,)
+    )
+    for rank, tb in sorted(world.errors.items()):
+        print(f"[rank {rank}] FAILED\n{tb}", file=sys.stderr)
+    return 1 if world.returncode or any(world.results) else 0
+
+
+def _rank_main(rank: int, device: torch.device, args: argparse.Namespace) -> int:
+    """One rank of the mesh job: the whole program on its device; only
+    rank 0 prints."""
+    mesh = mesh_lib.make_host_mesh(data=args.devices, device_type=device.type)
+    quiet = contextlib.redirect_stdout(io.StringIO()) if rank else contextlib.nullcontext()
+    with quiet:
+        return run(args, mesh=mesh, device=device)
+
+
+def run(args: argparse.Namespace, mesh=None, device: torch.device | None = None) -> int:
+    """The loop on one device, over ``--shards`` emulated shards or, with
+    ``mesh``, as one rank of the mesh job. Returns the exit code."""
+    device = torch.device(args.device) if device is None else device
+    leader = mesh is None or dist.get_rank() == 0
+    save_dir = args.save_dir or tempfile.mkdtemp(prefix="seizure_ckpt_")
+
+    def agree(ok: bool) -> bool:
+        """Every rank's verdict (each rank leaves together, so none waits
+        in a later collective for one that left)."""
+        if mesh is None:
+            return ok
+        votes = [None] * dist.get_world_size()
+        dist.all_gather_object(votes, ok)
+        return all(votes)
+
+    def checkpoint(fitted, step: int) -> None:
+        if leader:
+            ScoringProgram.from_fitted(fitted, cfg).save(save_dir, step=step)
+        if mesh is not None:
+            dist.barrier()
+
     per = eeg_data.WINDOWS_PER_MATRIX
     cfg = pipeline.PipelineConfig(
         forest=RotationForestConfig(
@@ -76,6 +146,10 @@ def main(argv: list[str] | None = None) -> int:
         ),
         overlap=args.overlap,
     )
+    if mesh is not None:
+        shards, mode, fit_kwargs = args.devices, f"{args.backend} mesh", {"mesh": mesh}
+    else:
+        shards, mode, fit_kwargs = args.shards, "emulated", {"n_shards": args.shards}
 
     def generator(offset: int) -> torch.Generator:
         return torch.Generator(device=device).manual_seed(args.seed + offset)
@@ -87,21 +161,20 @@ def main(argv: list[str] | None = None) -> int:
             n_interictal_windows=half, n_preictal_windows=half,
         ))
         t0 = time.perf_counter()
-        fitted = pipeline.fit(generator(offset + 1), rec, cfg, n_shards=args.shards)
+        fitted = pipeline.fit(generator(offset + 1), rec, cfg, **fit_kwargs)
         _sync(device)
         return rec, fitted, time.perf_counter() - t0
 
     # ---- map/reduce training --------------------------------------------
     rec, fitted, seconds = train(0)
-    print(f"[train] {rec.windows.shape[0]} windows over {args.shards} map shards "
+    print(f"[train] {rec.windows.shape[0]} windows over {shards} map shards ({mode}) "
           f"-> union forest of {fitted.forest.rotation.shape[0]} trees in "
           f"{seconds:.1f}s on {device}")
 
     # ---- freeze + round-trip through the checkpoint store ---------------
-    save_dir = args.save_dir or tempfile.mkdtemp(prefix="seizure_ckpt_")
-    path = ScoringProgram.from_fitted(fitted, cfg).save(save_dir)
+    checkpoint(fitted, 0)
     program = ScoringProgram.load(save_dir, device=device)
-    print(f"[ckpt]  ScoringProgram saved + reloaded from {path}")
+    print(f"[ckpt]  ScoringProgram saved + reloaded from {save_dir}")
 
     # ---- serve a held-out stream through the engine ---------------------
     timeline = eeg_data.make_test_timeline(
@@ -132,8 +205,8 @@ def main(argv: list[str] | None = None) -> int:
     # ---- the loaded program must reproduce the offline oracle -----------
     res = pipeline.evaluate_timeline(fitted, timeline, cfg)
     got_alarms = [e.alarm for e in scored]
-    if got_alarms != res.alarms.tolist():
-        print("[check] FAIL: served alarms diverge from pipeline oracle")
+    if not agree(got_alarms == res.alarms.tolist()):
+        print("[check] FAIL: served alarms diverge from pipeline oracle (on some rank)")
         return 1
     print(f"[check] served alarms == pipeline oracle ({sum(got_alarms)} alarm "
           f"chunks); lead time {float(res.lead_time_minutes):.0f} min (onset "
@@ -141,7 +214,7 @@ def main(argv: list[str] | None = None) -> int:
 
     # ---- retrain on fresh shards -> hot-swap into the LIVE engine -------
     _, fitted2, seconds = train(3)
-    ScoringProgram.from_fitted(fitted2, cfg).save(save_dir, step=1)
+    checkpoint(fitted2, 1)
     program2 = ScoringProgram.load(save_dir, device=device)  # latest = the retrain
     print(f"[retrain] fresh shards -> new forest in {seconds:.1f}s, checkpointed as step 1")
 
@@ -159,8 +232,8 @@ def main(argv: list[str] | None = None) -> int:
     swap_ms = (time.perf_counter() - t0) * 1e3
     scored2 = [e for e in events2 if isinstance(e, ChunkScored)]
     versions = [e.program_version for e in scored2]
-    if versions != [0] * k_swap + [version] * (n_chunks - k_swap):
-        print(f"[swap] FAIL: program_version stamps wrong: {versions}")
+    if not agree(versions == [0] * k_swap + [version] * (n_chunks - k_swap)):
+        print(f"[swap] FAIL: program_version stamps wrong (on some rank): {versions}")
         return 1
 
     # Composite oracle: chunk votes depend only on the serving program, so
@@ -169,9 +242,9 @@ def main(argv: list[str] | None = None) -> int:
     res2 = pipeline.evaluate_timeline(fitted2, timeline, cfg)
     combined = torch.cat([res.chunk_preds[:k_swap], res2.chunk_preds[k_swap:n_chunks]])
     want2 = pipeline.alarm_state(combined, cfg).tolist()
-    if [e.alarm for e in scored2] != want2:
+    if not agree([e.alarm for e in scored2] == want2):
         print("[swap] FAIL: post-swap served alarms diverge from the composite "
-              "old/new pipeline oracle")
+              "old/new pipeline oracle (on some rank)")
         return 1
     changed = int(np.sum(
         res.chunk_preds[:n_chunks].numpy() != res2.chunk_preds[:n_chunks].numpy()

@@ -13,10 +13,12 @@ serial-replay leg): gather-form wavelet analysis level by level,
 sample-major PCA with the full-width masked reconstruction, scatter-add
 synthesis.
 
-``fit`` trains on one device or MapReduce-style (``n_shards``), and
-``evaluate_timeline`` scores a chronological stream through a one-slot
-``serving.api.SeizureEngine``, so offline evaluation and serving share one
-code path.
+``fit`` trains on one device or MapReduce-style (one process per shard
+over a ``torch.distributed`` mesh, ``mesh=``, or the shards emulated one
+after the other, ``n_shards=``); ``process_recording_mapreduce`` is the
+feature map alone over a mesh. ``evaluate_timeline`` scores a
+chronological stream through a one-slot ``serving.api.SeizureEngine``, so
+offline evaluation and serving share one code path.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import forest_trainer
+from repro_torch.core import mapreduce as mr
 from repro_torch.core import rotation_forest as rf
 from repro_torch.core.rotation_forest import RotationForestConfig
 from repro_torch.kernels.forest import ops as forest_ops
@@ -86,6 +89,18 @@ def process_windows(windows: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
     return feats.reshape(n_mat * per, -1)[:w]
 
 
+def process_recording_mapreduce(
+    mesh, recording: eeg_data.Recording, cfg: PipelineConfig
+) -> torch.Tensor:
+    """``process_windows`` over the mesh's ``data`` dimension (the Hadoop
+    map of Sec. 2.4): each rank denoises and featurizes its own slice of
+    the recording's windows (align the slices with whole 8-minute chunks,
+    or each rank wrap-pads its last one), and every rank gets the union
+    of the features in rank order."""
+    job = mr.MapReduce(lambda wins: process_windows(wins, cfg), mr.reduce_concat, "data")
+    return job.run(mesh, recording.windows)
+
+
 # ---------------------------------------------------------------------------
 # Training / prediction
 # ---------------------------------------------------------------------------
@@ -101,19 +116,21 @@ def fit(
     """Train the pipeline: features -> z-score -> rotation forest, on the
     recording's device (draws from ``generator``, on the same device).
 
-    Default: one whole-recording fit. With ``n_shards`` the fit runs
-    MapReduce-style (``core.forest_trainer.fit_mapreduce``): each shard
-    denoises, featurizes and fits a sub-forest on its own slice of
-    windows, feature moments are global, and the ensemble is the union.
-    With ``denoise`` on, shard boundaries must fall on whole 8-minute
-    chunks (checked), or each shard would wrap-tile a partial matrix.
-    ``mesh`` is not ported yet and raises.
+    Default: one whole-recording fit. With ``mesh`` (one process per
+    shard along its ``data`` dimension, every rank calling with the same
+    recording and generator state) or ``n_shards`` (the shards emulated
+    in turn) the fit runs MapReduce-style
+    (``core.forest_trainer.fit_mapreduce``): each shard denoises,
+    featurizes and fits a sub-forest on its own slice of windows, feature
+    moments are global, and the ensemble is the union. With ``denoise``
+    on, shard boundaries must fall on whole 8-minute chunks (checked), or
+    each shard would wrap-tile a partial matrix.
     """
     if mesh is not None or n_shards is not None:
-        shards = int(n_shards) if n_shards is not None else 0
+        shards = mr.mesh_shards(mesh).count if mesh is not None else int(n_shards)
         w = recording.windows.shape[0]
         per = eeg_data.WINDOWS_PER_MATRIX
-        if cfg.denoise and shards and w % shards == 0 and (w // shards) % per != 0:
+        if cfg.denoise and shards > 0 and w % shards == 0 and (w // shards) % per != 0:
             raise ValueError(
                 f"{w} windows over {shards} shards gives {w // shards} "
                 f"windows per shard, not a multiple of "

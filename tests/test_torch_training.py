@@ -350,14 +350,17 @@ def test_union_tree_count(n_trees, n_shards, per_shard, total):
 
 
 def test_fit_mapreduce_rejects_mesh_and_ragged_shards():
+    """Exactly one of mesh= and n_shards= (as the reference), and rows
+    that do not shard evenly are refused."""
     x, y = torch.zeros((10, 6)), torch.zeros(10, dtype=torch.int32)
     cfg = rf.RotationForestConfig(n_trees=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ft.fit_mapreduce(torch.Generator(), x, y, cfg, mesh=object())
+    for kwargs in ({"mesh": object(), "n_shards": 2}, {}):
+        with pytest.raises(ValueError, match="exactly one of mesh= or n_shards="):
+            ft.fit_mapreduce(torch.Generator(), x, y, cfg, **kwargs)
     with pytest.raises(ValueError, match="shard evenly"):
         ft.fit_mapreduce(torch.Generator(), x, y, cfg, n_shards=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mr.MapReduce(lambda t: t).run(None, x)
+    with pytest.raises(ValueError, match="does not split into 3 equal shards"):
+        mr.MapReduce(lambda t: t).run_local(3, x)
 
 
 def test_merge_is_associative():
