@@ -57,7 +57,11 @@ Phases (any failure exits non-zero):
      uninterrupted feed and to pipeline.process_windows.
   5. Stage times of one engine step (the six eigh calls of one denoise
      among them), a profiler trace of one step (device busy and idle
-     share, device time by kernel).
+     share, device time by kernel), and the host syncs of one warm engine
+     step, counted by call site under ``torch.cuda.set_sync_debug_mode``
+     ("warn") through ``repro_torch.analysis.sanitizers.guard_methods``
+     ("syncs" lines; the event readout's host copies are exempt); the
+     same for one fit after phase 6.
   6. Training: a MapReduce fit of the default ``PipelineConfig`` (10
      trees of depth 6, 32 bins, F = 288) over 2 shards of 16 + 16
      stratified generated chunks, timed by stage (feature extraction and
@@ -115,6 +119,25 @@ Phases (any failure exits non-zero):
      subprocess must exit 0 (its ranks serve the union forest through K1
      and swap in a distributed retrain). The mesh fits' launches join the
      ``kernels`` line.
+  6d. The seizure engine across processes: ``SeizureEngine(mesh=)`` on
+     phase 3's traffic (8 sessions x 6 chunks, max_batch=8,
+     replay_depth=4) at overlap 0, then 2, then 0 again, and at overlap 2
+     on SNAP_BATCH = 4 slots (slots evicted and refilled), in a world of
+     one nccl rank and in a world of two gloo ranks sharing the card.
+     Every rank's events must equal the single-process engine's (phase
+     3's, or a 4-slot run of it) by phase 4's rule, and each rank must launch
+     K1 1, K2 2 and K3 6 times a step ("mesh engine" lines: windows/s per
+     rank and each step's gather ms beside phase 3's windows/s; two ranks
+     on one card measure contention, not scaling). Then, at overlap 0, the
+     collectives the drives above leave out: ``poll(drain=False)`` under a
+     latency budget that only the last rank's clock passes, with 2 of the 8
+     slots left empty so that it flushes partial batches (the flush is a
+     max over the mesh; held to a single-process engine of budget 0),
+     a mesh snapshot taken mid-stream as phase 4b takes it (SNAP_BATCH
+     slots) and restored without a mesh, and a single-process snapshot
+     restored on the mesh; each resumed engine's events, head and tail,
+     must equal the uninterrupted single-process engine's ("mesh engine
+     ... budget/snapshot" lines).
   7. LM serving at the full width of qwen3-0.6b (28 layers, 751.6 M
      parameters drawn from a seeded generator, bf16 compute). K5
      flash_attention against its plain version in the model's layout with
@@ -168,7 +191,8 @@ Phases (any failure exits non-zero):
      traces of one prefill and one decode step, with K6's share; the
      prefill copies no tensor of B H S N elements with a head axis.
   9. A ``kernels`` JSON line (K1-K6; launches summed over the counted
-     runs of phases 3, 4b, 6, 6c (every rank's mesh fit), 7 and 8), the
+     runs of phases 3, 4b, 6, 6c (every rank's mesh fit), 6d (every
+     rank's engine runs), 7 and 8), the
      script's seconds, the card line,
      and the last line ``{"ok": true, "device": {...}}``.
 """
@@ -817,14 +841,13 @@ def make_traffic(gen):
     return traffic
 
 
-def drive(program, traffic) -> tuple[list, dict]:
+def drive(program, traffic, **engine_kw) -> tuple[list, dict]:
     import torch
 
     from repro_torch.serving import api
 
-    engine = api.SeizureEngine(
-        program, max_batch=MAX_BATCH, replay_depth=REPLAY_DEPTH, device="cuda"
-    )
+    engine = api.SeizureEngine(program, **(
+        {"max_batch": MAX_BATCH, "replay_depth": REPLAY_DEPTH, "device": "cuda"} | engine_kw))
     sessions = {pid: engine.open_session(pid) for pid in traffic}
     events = []
     torch.cuda.synchronize()
@@ -1040,7 +1063,7 @@ def trace_step(program, traffic) -> None:
 # Phase 4b: snapshot/restore, the streaming frontend, the reference_kernels leg
 # ---------------------------------------------------------------------------
 
-def snap_start(program, traffic, *, megabatch: bool, snapshot_dir=None):
+def snap_start(program, traffic, *, megabatch: bool, snapshot_dir=None, **engine_kw):
     """An engine of SNAP_BATCH slots serving the traffic's push rounds up
     to and including the push of round SNAP_ROUND, where it snapshots into
     ``snapshot_dir`` (if given) before that round's poll. Returns the
@@ -1049,8 +1072,9 @@ def snap_start(program, traffic, *, megabatch: bool, snapshot_dir=None):
 
     from repro_torch.serving import api
 
-    engine = api.SeizureEngine(program, max_batch=SNAP_BATCH, replay_depth=REPLAY_DEPTH,
-                               megabatch=megabatch, device="cuda")
+    engine = api.SeizureEngine(program, **(
+        {"max_batch": SNAP_BATCH, "replay_depth": REPLAY_DEPTH, "megabatch": megabatch,
+         "device": "cuda"} | engine_kw))
     sessions = {pid: engine.open_session(pid) for pid in traffic}
     head, snap_ms = [], None
     for r, (lo, hi) in enumerate(zip(PUSH_CUTS[:-1], PUSH_CUTS[1:])):
@@ -2127,6 +2151,231 @@ def distributed_phase(phase6: dict, smi: str) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
+# Phase 6d: the seizure engine across processes
+# ---------------------------------------------------------------------------
+
+# (overlap, slots, label): the last serves the 8 sessions on 4 slots, so
+# slots are evicted and refilled (a slot's state is broadcast by its owner).
+MESH_RUNS = ((0, MAX_BATCH, "first drive of the process"), (2, MAX_BATCH, "warm"),
+             (0, MAX_BATCH, "warm"), (2, SNAP_BATCH, "warm, 8 sessions on 4 slots"))
+MESH_SNAPSHOTS = ROOT / "build" / "mesh_engine_snapshots"
+# (name, the single-process run it is held to): the drives at overlap 0
+# that take the budget's and the snapshot's collectives.
+MESH_EXTRAS = (("budget", "budget 0"), ("snapshot, live", "4 slots"),
+               ("mesh snapshot restored without a mesh", "4 slots"),
+               ("single-process snapshot restored on the mesh", "4 slots"))
+
+
+def budget_traffic(traffic) -> dict:
+    """The traffic less its last 2 sessions: on MAX_BATCH slots no batch is
+    full, so ``poll(drain=False)`` steps only when the budget says so."""
+    return dict(list(traffic.items())[:N_SESSIONS - 2])
+
+
+def ticking(step: float):
+    """A clock that moves ``step`` seconds at every read."""
+    now = [0.0]
+
+    def clock():
+        now[0] += step
+        return now[0]
+
+    return clock
+
+
+def mesh_engine_extras(program, traffic, mesh, device, rank, n_ranks) -> list[dict]:
+    """Phase 6d's overlap-0 drives through the budget's and the snapshot's
+    collectives, as MESH_EXTRAS names them: each one's events (head and
+    tail), steps and launches. The budget drive serves ``budget_traffic``;
+    the budget is 50 s and only the last rank's clock moves (100 s a
+    read), so each partial batch is flushed because the max over the mesh
+    says so."""
+    import torch.distributed as dist
+
+    from repro_torch.serving import api
+
+    reset_counts()
+    events, stats = drive(program, budget_traffic(traffic), mesh=mesh, device=device,
+                          latency_budget_s=50.0,
+                          clock=ticking(100.0 if rank == n_ranks - 1 else 0.0))
+    out = [dict(name="budget", events=events, steps=stats["steps"], counts=launch_counts())]
+    mesh_dir, plain_dir = MESH_SNAPSHOTS / f"{n_ranks}/mesh", MESH_SNAPSHOTS / f"{n_ranks}/plain"
+    reset_counts()
+    engine, head, _ = snap_start(program, traffic, megabatch=True, snapshot_dir=mesh_dir,
+                                 mesh=mesh, device=device)
+    tail = snap_resume(engine, traffic)[0]
+    out.append(dict(name="snapshot, live", events=head + tail, steps=engine.steps,
+                    counts=launch_counts()))
+    if rank == 0:
+        snap_start(program, traffic, megabatch=True, snapshot_dir=plain_dir, device=device)
+    dist.barrier()  # rank 0's single-process snapshot is written
+    for name, directory, on_mesh in (
+            ("mesh snapshot restored without a mesh", mesh_dir, None),
+            ("single-process snapshot restored on the mesh", plain_dir, mesh)):
+        restored = api.SeizureEngine.restore(str(directory), mesh=on_mesh, device=device)
+        steps0 = restored.steps
+        reset_counts()
+        tail = snap_resume(restored, traffic)[0]
+        out.append(dict(name=name, events=head + tail, steps=restored.steps - steps0,
+                        counts=launch_counts()))
+    return out
+
+
+def mesh_engine_rank(rank, device, traffic, n_ranks) -> dict:
+    """Phase 6d, one rank: SeizureEngine(mesh=) over this world's data
+    axis, on phase 3's traffic as MESH_RUNS lists it: each drive's events,
+    stats, launches and each step's gather ms (synchronized)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.serving import api
+
+    build.load()
+    torch.linalg.eigh(torch.eye(8, device=device))
+    mesh = mesh_lib.make_host_mesh(data=n_ranks, device_type=device.type)
+    program = api.ScoringProgram.load(
+        str(ROOT / "src/repro_torch/assets/seizure_program"), device=device)
+    gather, gathers = api._gather_slot_rows, []
+
+    def timed_gather(outs, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = gather(outs, group)
+        torch.cuda.synchronize()
+        gathers.append((time.perf_counter() - t0) * 1e3)
+        return got
+
+    api._gather_slot_rows = timed_gather
+    runs = []
+    for overlap, slots, label in MESH_RUNS:
+        prog = api.ScoringProgram(program.packed, program.feat_mean, program.feat_std,
+                                  program.cfg._replace(overlap=overlap))
+        gathers.clear()
+        reset_counts()
+        events, stats = drive(prog, traffic, max_batch=slots, mesh=mesh, device=device)
+        runs.append(dict(overlap=overlap, slots=slots, label=label, events=events,
+                         stats=stats, counts=launch_counts(), gathers=list(gathers)))
+    api._gather_slot_rows = gather
+    extras = mesh_engine_extras(program, traffic, mesh, device, dist.get_rank(), n_ranks)
+    return dict(runs=runs, extras=extras, device=str(device), backend=dist.get_backend())
+
+
+def mesh_engine_phase(program, traffic, default_runs, smi) -> dict[str, int]:
+    """Phase 6d. Returns the kernels' launches in every rank's drives."""
+    import shutil
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.serving import api
+
+    launches: dict[str, int] = {}
+    per_step = {"forest": 1, "wpd_level": 2, "gram": 6}
+    single = {(ov, MAX_BATCH): run for ov, run in default_runs.items()}
+    for ov, slots, _ in MESH_RUNS:
+        if (ov, slots) not in single:
+            single[ov, slots] = drive(api.ScoringProgram(
+                program.packed, program.feat_mean, program.feat_std,
+                program.cfg._replace(overlap=ov)), traffic, max_batch=slots)
+    prog0 = api.ScoringProgram(program.packed, program.feat_mean, program.feat_std,
+                               program.cfg._replace(overlap=0))
+    extra_ref = {"budget 0": drive(prog0, budget_traffic(traffic), latency_budget_s=0.0),
+                 "4 slots": drive(prog0, traffic, max_batch=SNAP_BATCH)}
+    unbudgeted = drive(prog0, budget_traffic(traffic))[1]["steps"]
+    if unbudgeted >= extra_ref["budget 0"][1]["steps"]:
+        fail(f"the budget drive's traffic fills every batch ({unbudgeted} steps without a "
+             "budget): it would not exercise the budget's flush")
+    shutil.rmtree(MESH_SNAPSHOTS, ignore_errors=True)
+    for backend, n in (("nccl", 1), ("gloo", 2)):
+        t0 = time.perf_counter()
+        ranks = mesh_lib.spawn_world(mesh_engine_rank, n, backend=backend, device="cuda",
+                                     args=(traffic, n), timeout_s=600.0).check()
+        world_s = time.perf_counter() - t0
+        for rank, res in enumerate(ranks):
+            for run in res["runs"]:
+                ov, stats, c, g = run["overlap"], run["stats"], run["counts"], run["gathers"]
+                want_events, want_stats = single[ov, run["slots"]]
+                prog = api.ScoringProgram(program.packed, program.feat_mean, program.feat_std,
+                                          program.cfg._replace(overlap=ov))
+                if stats["chunks"] != N_SESSIONS * CHUNKS_PER_SESSION:
+                    fail(f"mesh engine {backend} rank {rank}: scored {stats['chunks']} chunks")
+                differing = compare_events(run["events"], want_events, prog, traffic)
+                if {k: c[k] for k in per_step} != {k: v * stats["steps"] for k, v in per_step.items()}:
+                    fail(f"mesh engine {backend} rank {rank}: launches {c} over "
+                         f"{stats['steps']} steps, expected {per_step} a step")
+                for k in per_step:
+                    launches[k] = launches.get(k, 0) + c[k]
+                print(f"mesh engine {backend}: rank {rank} of {n} ({res['device']}, "
+                      f"{run['slots'] // n} of {run['slots']} slots), overlap {ov}, "
+                      f"{run['label']}: {stats['windows_per_s']:.1f} windows/s "
+                      f"({stats['seconds']:.3f} s, {stats['steps']} steps) against the single "
+                      f"process's {want_stats['windows_per_s']:.1f}; events equal the single-process "
+                      f"engine's, {differing} window predictions differ (all at routing margin "
+                      f"< 1e-3); gathers (ms, one a step) "
+                      f"{', '.join(f'{ms:.2f}' for ms in g)}; launches {c}; card {smi}")
+            for run, (name, ref) in zip(res["extras"], MESH_EXTRAS, strict=True):
+                c, steps = run["counts"], run["steps"]
+                want_events, want_stats = extra_ref[ref]
+                differing = compare_events(run["events"], want_events, prog0, traffic)
+                if {k: c[k] for k in per_step} != {k: v * steps for k, v in per_step.items()}:
+                    fail(f"mesh engine {backend} rank {rank}, {name}: launches {c} over "
+                         f"{steps} steps, expected {per_step} a step")
+                for k in per_step:
+                    launches[k] = launches.get(k, 0) + c[k]
+                print(f"mesh engine {backend}: rank {rank} of {n}, overlap 0, {name}: events "
+                      f"equal the single-process engine's ({ref}, {want_stats['steps']} steps; "
+                      f"{unbudgeted} steps without a budget), "
+                      f"{differing} window predictions differ (all at routing margin < 1e-3); "
+                      f"{steps} steps; launches {c}")
+        print(f"mesh engine {backend}: {n} rank(s) on one card ({smi}): contention, not "
+              f"scaling; world {world_s:.1f} s")
+    shutil.rmtree(MESH_SNAPSHOTS, ignore_errors=True)
+    return launches
+
+
+def print_syncs(label: str, count) -> None:
+    """A ``SyncCount``'s total, then each call site on a line of its own."""
+    print(f"syncs {label}: {count.total} at {len(count.by_site)} call sites "
+          "(torch.cuda.set_sync_debug_mode('warn'), host copies exempt)")
+    for site, n in count.by_site.most_common():
+        print(f"syncs {label}: {n} at {site}")
+
+
+def engine_step_syncs(program, traffic) -> None:
+    """The host syncs of one warm engine step (8 slots x 4 chunks: both
+    steps take each session's first 4 chunks), by call site."""
+    from repro_torch.analysis import sanitizers
+    from repro_torch.serving import api
+
+    engine = api.SeizureEngine(program, max_batch=MAX_BATCH, replay_depth=REPLAY_DEPTH,
+                               device="cuda")
+    sessions = {pid: engine.open_session(pid) for pid in list(traffic)[:MAX_BATCH]}
+    per = REPLAY_DEPTH * 60
+    for rnd in range(2):  # the first step warms the engine up
+        for pid, s in sessions.items():
+            s.push(traffic[pid][:per])
+        with sanitizers.guard_methods(engine, "poll") as count:
+            engine.poll()
+    if engine.steps != 2:
+        fail(f"the sync count's engine ran {engine.steps} steps, expected 2")
+    print_syncs("one warm engine step", count)
+
+
+def fit_syncs(phase6) -> None:
+    """The host syncs of one default fit on phase 6's set, by call site."""
+    import torch
+
+    from repro_torch.analysis import sanitizers
+    from repro_torch.signal import pipeline
+
+    gen = torch.Generator(device="cuda")
+    gen.set_state(phase6["state"])
+    with sanitizers.guard_methods(pipeline, "fit") as count:
+        pipeline.fit(gen, phase6["rec"], pipeline.PipelineConfig(), n_shards=TRAIN_SHARDS)
+    print_syncs("one fit", count)
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: LM serving (dense qwen3-0.6b, K5)
 # ---------------------------------------------------------------------------
 
@@ -2982,6 +3231,7 @@ def main() -> int:
     for stage, ms in stage_times(program, traffic).items():
         print(f"stage {stage}: {ms:.3f} ms")
     trace_step(program, traffic)
+    engine_step_syncs(program, traffic)
 
     # Phase 6.
     hist_rows, fit_counts, phase6 = training_phase(gen, program)
@@ -2993,6 +3243,13 @@ def main() -> int:
     for k, n in distributed_phase(phase6, smi).items():
         launches[k] += n
     print(f"phase 6c (distributed training): {time.perf_counter() - t0:.1f} s")
+    fit_syncs(phase6)
+
+    # Phase 6d.
+    t0 = time.perf_counter()
+    for k, n in mesh_engine_phase(program, traffic, default_runs, smi).items():
+        launches[k] += n
+    print(f"phase 6d (the engine across processes): {time.perf_counter() - t0:.1f} s")
 
     # Phase 7.
     flash_rows, launches["flash_attention"] = lm_phase(gen)

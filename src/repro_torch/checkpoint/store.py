@@ -6,6 +6,8 @@ a (nested) dict, keyed by its ``/``-joined path; the file name replaces
 since numpy has no bfloat16. Writes are atomic (a temp dir inside
 ``directory``, then one rename), so a killed save never leaves a half
 checkpoint, and ``latest_step`` sweeps the temp dirs such a kill leaves.
+``manifest_like`` reads a step's leaf shapes and dtypes from its manifest
+alone, for a loader to check before it reads or installs anything.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import json
 import os
 import shutil
 import tempfile
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -83,12 +85,9 @@ def latest_step(directory: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(directory: str, step: int) -> dict[str, torch.Tensor]:
-    """Every leaf of step ``step`` as a flat {key: CPU tensor} dict.
-
-    Raises ``FileNotFoundError`` for a missing or incomplete step and
-    ``ValueError`` when a leaf on disk disagrees with its manifest entry.
-    """
+def _manifest(directory: str, step: int) -> tuple[str, dict]:
+    """(step directory, its manifest's leaves); ``FileNotFoundError`` for a
+    missing or incomplete step."""
     src = os.path.join(directory, f"step_{step:08d}")
     manifest_path = os.path.join(src, "manifest.json")
     if not os.path.isfile(manifest_path):
@@ -97,7 +96,41 @@ def restore(directory: str, step: int) -> dict[str, torch.Tensor]:
             f"step {step} in {directory!r})"
         )
     with open(manifest_path) as f:
-        manifest = json.load(f)["leaves"]
+        return src, json.load(f)["leaves"]
+
+
+class LeafSpec(NamedTuple):
+    """One saved leaf's shape and dtype, as its manifest gives them."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+def _torch_dtype(name: str) -> torch.dtype:
+    if name == "bfloat16":
+        return torch.bfloat16
+    return torch.from_numpy(np.empty(0, np.dtype(name))).dtype
+
+
+def manifest_like(directory: str, step: int) -> dict[str, LeafSpec]:
+    """Every leaf of step ``step`` as {key: ``LeafSpec``}, read from its
+    manifest alone (no array is loaded): what a loader checks against the
+    geometry it expects before anything is installed. The twin of the
+    reference's ``manifest_like``, with torch dtypes."""
+    _, manifest = _manifest(directory, step)
+    return {
+        key: LeafSpec(tuple(e["shape"]), _torch_dtype(e["dtype"]))
+        for key, e in manifest.items()
+    }
+
+
+def restore(directory: str, step: int) -> dict[str, torch.Tensor]:
+    """Every leaf of step ``step`` as a flat {key: CPU tensor} dict.
+
+    Raises ``FileNotFoundError`` for a missing or incomplete step and
+    ``ValueError`` when a leaf on disk disagrees with its manifest entry.
+    """
+    src, manifest = _manifest(directory, step)
     out = {}
     for key, entry in manifest.items():
         arr = np.load(os.path.join(src, entry["file"]))

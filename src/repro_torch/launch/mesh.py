@@ -181,15 +181,18 @@ def spawn_world(
     errors: dict[int, str] = {}
     pending = set(range(n_ranks))
     deadline = time.monotonic() + timeout_s
+    limit = f"no result within timeout_s={timeout_s:g} s"  # the limit that ends the wait
     gone_since: dict[int, float] = {}
     try:
         while pending:
             now = time.monotonic()
-            if errors:
-                deadline = min(deadline, now + _GRACE_S)
+            if errors and now + _GRACE_S < deadline:
+                deadline = now + _GRACE_S
+                limit = (f"no result within the {_GRACE_S:g} s grace period after "
+                         f"rank {min(errors)} failed")
             if now > deadline:
                 for r in pending:
-                    errors[r] = f"no result within {timeout_s:.0f} s; terminated"
+                    errors[r] = f"{limit}; terminated"
                 break
             try:
                 rank, ok, payload = results.get(timeout=0.5)

@@ -10,7 +10,8 @@ reference's per-op ``astype``; on the model's compute copy of the
 weights (``Model.compute_params``) they are no-ops.
 
 Not here yet: the custom VJP of ``rmsnorm`` and the context-parallel
-form of ``_sdpa_chunked`` (training and the mesh, ROADMAP item 14).
+form of ``_sdpa_chunked`` (ROADMAP.md queue 1, "LM training" and "Mesh and
+dry-run tools").
 """
 
 from __future__ import annotations

@@ -53,11 +53,12 @@ Params = dict[str, Any]
 # Leaves the reference reads in float32 (from its float32 masters).
 _FLOAT32_LEAVES = ("scale", "dt_bias", "A_log")
 
+_FAMILIES = 'ROADMAP.md queue 1, "The remaining LM families"'
 _WAITING = {
-    "moe": "ROADMAP item 14 (models/moe.py)",
-    "ssm": "ROADMAP item 14 (models/xlstm.py)",
-    "audio": "ROADMAP item 14 (the audio frontend)",
-    "vlm": "ROADMAP item 14 (the vlm prefix-LM frontend)",
+    "moe": f"{_FAMILIES} (models/moe.py)",
+    "ssm": f"{_FAMILIES} (models/xlstm.py)",
+    "audio": f"{_FAMILIES} (the audio frontend)",
+    "vlm": f"{_FAMILIES} (the vlm prefix-LM frontend)",
 }
 
 
@@ -104,7 +105,7 @@ class Model(nn.Module):
         if cfg.family not in ("dense", "hybrid"):
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family is not ported yet: "
-                f"{_WAITING.get(cfg.family, 'ROADMAP item 14')}"
+                f"{_WAITING.get(cfg.family, _FAMILIES)}"
             )
         self.cfg = cfg
         self._compute: tuple[Params, Any] | None = None
@@ -272,7 +273,8 @@ class Model(nn.Module):
         return self._unembed(params, x), aux
 
     def loss(self, batch: Params):
-        raise NotImplementedError("Model.loss waits for LM training (ROADMAP item 14)")
+        raise NotImplementedError(
+            'Model.loss waits for LM training (ROADMAP.md queue 1, "LM training")')
 
     # --- caches -----------------------------------------------------------------
     def cache_shapes(self, batch: int, max_seq: int) -> Params:
@@ -395,7 +397,7 @@ def build(cfg: ArchConfig, act_axes: tuple | None = None, mesh: Any = None,
     if act_axes is not None or mesh is not None or seq_shard or context_parallel or moe_wg:
         raise NotImplementedError(
             "mesh sharding (act_axes, seq_shard, context_parallel, moe_wg) is not "
-            "ported yet: ROADMAP item 14 (sharding/rules.py)"
+            'ported yet: ROADMAP.md queue 1, "Mesh and dry-run tools" (sharding/rules.py)'
         )
     return Model(cfg)
 

@@ -23,8 +23,14 @@ running engine and bumps the ``program_version`` every ``ChunkScored``
 carries. ``snapshot`` writes the whole engine (device state, program,
 every session's queue and context) as one atomic checkpoint in the
 reference's layout, and ``SeizureEngine.restore`` rebuilds it: a snapshot
-of either package restores in the other. Mesh sharding of the reference
-engine is not ported (ROADMAP.md).
+of either package restores in the other.
+
+With a ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` with a ``"data"``
+dimension, ``launch.mesh.make_host_mesh``) the engine's slots are sharded
+along ``data`` across processes, as the reference shards them along its
+mesh's ``data`` axis: each rank holds its own rows of the device state and
+runs the step on them, and every rank emits the same events (the SPMD
+contract is in ``SeizureEngine``'s docstring).
 """
 
 from __future__ import annotations
@@ -32,13 +38,16 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import os
 import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import store as ckpt_store
+from repro_torch.core import mapreduce as mr
 from repro_torch.core import rotation_forest as rf
 from repro_torch.core.rotation_forest import RotationForestConfig
 from repro_torch.device import resolve_device
@@ -87,6 +96,18 @@ def _host_copy(t: torch.Tensor) -> np.ndarray:
 # ScoringProgram
 # ---------------------------------------------------------------------------
 
+def _install_program_arrays(packed, feat_mean, feat_std, *, device: torch.device):
+    """A program's leaves as contiguous float32 tensors on ``device``, with
+    the tables K1 walks derived there: the one install path of a program
+    (the reference's ``_install_program_arrays``)."""
+    packed = forest_ops.with_walk_tables(forest_ops.PackedForest(*(
+        x.to(device=device, dtype=torch.float32).contiguous()
+        for x in (packed.proj, packed.thr, packed.leaf_probs)
+    )))
+    return (packed, feat_mean.to(device=device, dtype=torch.float32),
+            feat_std.to(device=device, dtype=torch.float32))
+
+
 _ARRAY_KEYS = ("proj", "thr", "leaf_probs", "feat_mean", "feat_std")
 
 
@@ -129,6 +150,25 @@ class ScoringProgram:
         arrays["cfg_json"] = np.frombuffer(json.dumps(cfg_json).encode(), dtype=np.uint8)
         return arrays
 
+    @staticmethod
+    def _check_shapes(shapes: dict[str, tuple]) -> None:
+        """Refuse leaves that do not form one packed forest: proj (T, F, L),
+        thr (T, L), leaf_probs (T, L, C), feat_mean and feat_std alike."""
+        missing = [k for k in _ARRAY_KEYS if k not in shapes]
+        if missing:
+            raise ValueError(f"program leaves missing: {missing}")
+        proj = tuple(shapes["proj"])
+        if (
+            len(proj) != 3
+            or tuple(shapes["thr"]) != (proj[0], proj[2])
+            or tuple(shapes["leaf_probs"])[:2] != (proj[0], proj[2])
+            or tuple(shapes["feat_mean"]) != tuple(shapes["feat_std"])
+        ):
+            raise ValueError(
+                "inconsistent program leaves: "
+                + ", ".join(f"{k} {tuple(shapes[k])}" for k in _ARRAY_KEYS)
+            )
+
     @classmethod
     def _from_arrays(cls, arrays: dict, device: torch.device | str) -> "ScoringProgram":
         """Inverse of ``_to_arrays``; leaves may be numpy arrays or tensors."""
@@ -139,16 +179,7 @@ class ScoringProgram:
             k: torch.from_numpy(np.array(arrays[k], dtype=np.float32))
             for k in _ARRAY_KEYS
         }
-        n_trees, f, n_leaves = t["proj"].shape
-        if (
-            t["thr"].shape != (n_trees, n_leaves)
-            or t["leaf_probs"].shape[:2] != (n_trees, n_leaves)
-            or t["feat_mean"].shape != t["feat_std"].shape
-        ):
-            raise ValueError(
-                "inconsistent program leaves: "
-                + ", ".join(f"{k} {tuple(v.shape)}" for k, v in t.items())
-            )
+        cls._check_shapes({k: v.shape for k, v in t.items()})
         return cls(
             packed=forest_ops.PackedForest(
                 proj=t["proj"], thr=t["thr"], leaf_probs=t["leaf_probs"]
@@ -161,16 +192,10 @@ class ScoringProgram:
     def to(self, device: torch.device | str | None = None) -> "ScoringProgram":
         """The same program with its leaves on ``device`` (as float32), and
         the tables K1 walks derived there."""
-        dev = resolve_device(device)
-        packed = forest_ops.with_walk_tables(forest_ops.PackedForest(*(
-            x.to(device=dev, dtype=torch.float32).contiguous()
-            for x in (self.packed.proj, self.packed.thr, self.packed.leaf_probs)
-        )))
-        return dataclasses.replace(
-            self, packed=packed,
-            feat_mean=self.feat_mean.to(device=dev, dtype=torch.float32),
-            feat_std=self.feat_std.to(device=dev, dtype=torch.float32),
+        packed, mean, std = _install_program_arrays(
+            self.packed, self.feat_mean, self.feat_std, device=resolve_device(device)
         )
+        return dataclasses.replace(self, packed=packed, feat_mean=mean, feat_std=std)
 
     def save(self, directory: str, step: int = 0) -> str:
         """Write the program under ``directory/step_<step>`` (atomic)."""
@@ -182,7 +207,8 @@ class ScoringProgram:
         device: torch.device | str | None = None,
     ) -> "ScoringProgram":
         """Restore a saved program (latest step when ``step`` is None) onto
-        ``device`` (CUDA by default)."""
+        ``device`` (CUDA by default). Its manifest is checked first
+        (``ValueError`` for leaves that do not form one packed forest)."""
         dev = resolve_device(device)
         if step is None:
             step = ckpt_store.latest_step(directory)
@@ -191,6 +217,8 @@ class ScoringProgram:
                     f"no ScoringProgram checkpoints under {directory!r} "
                     "(empty or missing directory)"
                 )
+        like = ckpt_store.manifest_like(directory, step)
+        cls._check_shapes({k: v.shape for k, v in like.items()})
         return cls._from_arrays(ckpt_store.restore(directory, step), dev)
 
 
@@ -269,11 +297,20 @@ def _advance_ring(rings, pos, alarm, votes, act, alarm_k):
     return rings, pos, alarm
 
 
+def _write_state(state: EngineState, new: EngineState) -> EngineState:
+    """Copy ``new`` into ``state``'s own tensors and return ``state``: a
+    step keeps its carried state's storage (the reference donates it), as
+    a captured CUDA graph of the step will need."""
+    for dst, src in zip(state, new):
+        dst.copy_(src)
+    return state
+
+
 def _engine_step(state, chunks, active, packed, feat_mean, feat_std, *, cfg):
     """The SERIAL oracle: one chunk per slot at a time through
     ``frontend_step`` and the vote, then the ring. chunks (B, D, W, C, N),
     active (B, D) prefix masks. Returns (state, votes, frac, alarm) as
-    (B, D) and preds (B, D, W)."""
+    (B, D) and preds (B, D, W); ``state`` is updated in place."""
     d = chunks.shape[1]
     st = state
     outs = []
@@ -293,15 +330,15 @@ def _engine_step(state, chunks, active, packed, feat_mean, feat_std, *, cfg):
         )
         outs.append((votes, frac, alarm, preds))
     votes, frac, alarm, preds = (torch.stack(x, dim=1) for x in zip(*outs))
-    return st, votes, frac, alarm, preds
+    return _write_state(state, st), votes, frac, alarm, preds
 
 
 def _engine_step_megabatch(state, chunks, active, packed, feat_mean, feat_std, *, cfg):
-    """The default step, same contract as ``_engine_step``: the heavy
-    stage runs ONCE over the flattened (B*D) chunks (halos taken from the
-    backlog itself), and only the alarm ring advances over the D votes.
-    ``frac``/``preds`` of padding positions are computed from stale
-    buffer contents and never read by the host."""
+    """The default step, same contract as ``_engine_step`` (``state``
+    updated in place): the heavy stage runs ONCE over the flattened (B*D)
+    chunks (halos taken from the backlog itself), and only the alarm ring
+    advances over the D votes. ``frac``/``preds`` of padding positions are
+    computed from stale buffer contents and never read by the host."""
     b, d = active.shape
     active = active.to(torch.int32)
     fe, feats = frontend.megabatch_step(state.frontend_state(), chunks, active, cfg)
@@ -317,10 +354,10 @@ def _engine_step_megabatch(state, chunks, active, packed, feat_mean, feat_std, *
             rings, pos, alarm, votes[:, j], active[:, j], cfg.alarm_k
         )
         alarms.append(alarm)
-    new_state = EngineState(
+    new_state = _write_state(state, EngineState(
         rings=rings, ring_pos=pos, alarm=alarm,
         fe_boundary=fe.boundary, fe_phase=fe.phase,
-    )
+    ))
     return new_state, votes, frac.reshape(b, d), torch.stack(alarms, dim=1), preds.reshape(b, d, w)
 
 
@@ -335,31 +372,67 @@ def _splice_state(state, slot, ring, pos, alarm, boundary, phase) -> None:
     state.fe_phase[slot] = int(phase)
 
 
-def _install_state(
-    state: EngineState, *, max_batch: int, alarm_m: int, fe_width: int,
-    device: torch.device,
-) -> EngineState:
-    """The restore path's state install (the reference's ``_install_state``):
-    every snapshot leaf as a contiguous int32 (float32 for the boundary)
-    tensor on ``device``, its shape checked against the engine's
-    ``max_batch``, ``alarm_m`` and boundary width first."""
+def _check_state_shapes(
+    shapes: dict[str, tuple], *, max_batch: int, alarm_m: int, fe_width: int
+) -> None:
+    """Refuse snapshot state leaves (``state__<leaf>`` -> shape, from the
+    manifest) that do not fit the engine's ``max_batch``, ``alarm_m`` and
+    boundary width."""
     want = EngineState(
         rings=(max_batch, alarm_m), ring_pos=(max_batch,), alarm=(max_batch,),
         fe_boundary=(max_batch, fe_width, eeg_data.N_CHANNELS, eeg_data.WINDOW),
         fe_phase=(max_batch,),
     )
-    leaves = {}
-    for name, leaf in state._asdict().items():
-        t = torch.as_tensor(leaf)
-        if tuple(t.shape) != getattr(want, name):
+    for name in EngineState._fields:
+        got = tuple(shapes[f"state__{name}"])
+        if got != getattr(want, name):
             raise ValueError(
-                f"engine snapshot leaf state__{name} has shape {tuple(t.shape)}, "
+                f"engine snapshot leaf state__{name} has shape {got}, "
                 f"expected {getattr(want, name)} (max_batch={max_batch}, "
                 f"alarm_m={alarm_m}, boundary width={fe_width})"
             )
+
+
+def _install_state(
+    state: EngineState, *, rows: slice = slice(None), device: torch.device
+) -> EngineState:
+    """The restore path's state install (the reference's ``_install_state``):
+    rows ``rows`` of every snapshot leaf (a mesh rank's own slots) as a
+    contiguous int32 (float32 for the boundary) tensor on ``device``."""
+    leaves = {}
+    for name, leaf in state._asdict().items():
         dtype = torch.float32 if name == "fe_boundary" else torch.int32
-        leaves[name] = t.to(device=device, dtype=dtype).contiguous()
+        leaves[name] = torch.as_tensor(leaf)[rows].to(device=device, dtype=dtype).contiguous()
     return EngineState(**leaves)
+
+
+def _pack_slot(state: EngineState, i: int) -> torch.Tensor:
+    """Slot ``i``'s ring, cursor, alarm, phase and boundary as one int32
+    buffer (the boundary as its float32 bits): one host copy, or one
+    broadcast on a mesh, carries the whole slot."""
+    return torch.cat([
+        state.rings[i],
+        torch.stack([state.ring_pos[i], state.alarm[i], state.fe_phase[i]]),
+        state.fe_boundary[i].reshape(-1).view(torch.int32),
+    ])
+
+
+def _gather_slot_rows(outs, group) -> list[torch.Tensor]:
+    """Every data rank's (B/P, ...) step outputs -> the (B, ...) outputs in
+    slot order (rank order), through one ``all_gather`` of one int32
+    buffer a rank (float32 outputs travel as their bits)."""
+    flat = [t.reshape(-1).view(torch.int32) for t in outs]
+    mine = torch.cat(flat)
+    parts = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, mine, group=group)
+    gathered, offset = [], 0
+    for t, f in zip(outs, flat):
+        n = f.numel()
+        gathered.append(torch.cat([
+            p[offset:offset + n].view(t.dtype).reshape(t.shape) for p in parts
+        ]))
+        offset += n
+    return gathered
 
 
 # ---------------------------------------------------------------------------
@@ -454,11 +527,31 @@ class SeizureEngine:
     latency_budget_s : ``poll(drain=False)`` flushes a partial batch once
                        the oldest queued chunk has waited this long.
     clock            : monotonic time source for the budget.
+    mesh             : optional ``DeviceMesh`` with a ``"data"`` dimension:
+                       slots sharded along it across processes.
     device           : CUDA by default; ``"cpu"`` runs the plain versions.
+                       On a mesh, this rank's device.
 
     Each slot is bound to at most one session; after every step, slots
     whose session has nothing ready are freed and refilled from the
     waiting queue, carrying the ring and frontend context across.
+
+    On a mesh the engine is SPMD, as a multi-controller JAX program is:
+    every rank builds the same engine, opens the same sessions, pushes the
+    same windows, and calls ``poll``, ``reset_alarm``, ``swap_program``,
+    ``score_chunks`` and ``snapshot`` at the same points with the same
+    arguments (``max_batch`` a multiple of the ``data`` size P, else
+    ``ValueError``). The rank at ``data`` index r holds slots
+    ``[r B/P, (r+1) B/P)`` of the device state on its own device and runs
+    the step on those slots' chunks only; the step's outputs are gathered
+    in rank order, so every rank emits the same events, and the host
+    bookkeeping stays the same on every rank: a slot's state is read on
+    the host by a broadcast from its owner. Whether a partial batch is
+    flushed for the latency budget is decided over the whole mesh (a
+    step happens if any rank's clock says so). Ranks along a ``model``
+    dimension hold the same slots, as the reference's ``P("data")``
+    replicates them. The program is replicated: each rank installs it on
+    its own device.
     """
 
     def __init__(
@@ -471,10 +564,24 @@ class SeizureEngine:
         megabatch: bool = True,
         latency_budget_s: float | None = None,
         clock=time.monotonic,
+        mesh=None,
         device: torch.device | str | None = None,
     ):
         if replay_depth < 1:
             raise ValueError(f"replay_depth={replay_depth} must be >= 1")
+        self.mesh = mesh
+        # This rank's index along the data axis and the axis's size: the
+        # rank holds slots [_lo, _lo + _per_rank).
+        self._group, self._rank, self._parts = None, 0, 1
+        if mesh is not None:
+            self._group = mr.axis_group(mesh, "data")
+            self._rank, self._parts = dist.get_rank(self._group), dist.get_world_size(self._group)
+            if max_batch % self._parts:
+                raise ValueError(
+                    f"max_batch={max_batch} not divisible by mesh data axis {self._parts}"
+                )
+        self._per_rank = max_batch // self._parts
+        self._lo = self._rank * self._per_rank
         self.device = resolve_device(device)
         self.program = self._install_program(program)
         self.max_batch = max_batch
@@ -492,7 +599,7 @@ class SeizureEngine:
         self._slots: list[StreamSession | None] = [None] * max_batch
         self._waiting: collections.deque[StreamSession] = collections.deque()
         self._state = init_state(
-            max_batch, self.alarm_m, overlap=program.cfg.overlap, device=self.device
+            self._per_rank, self.alarm_m, overlap=program.cfg.overlap, device=self.device
         )
 
     # -- program install / hot-swap ------------------------------------------
@@ -591,27 +698,48 @@ class SeizureEngine:
 
     # -- slot scheduling -----------------------------------------------------
 
+    def _read_slot(self, slot: int) -> tuple:
+        """The slot's device stream state on the host: (ring, ring_pos,
+        alarm, boundary, phase), from one host copy of one packed buffer.
+        On a mesh the slot's owner broadcasts the buffer to the other ranks
+        of the data axis."""
+        owner, local = divmod(slot, self._per_rank)
+        m = self.alarm_m
+        if owner == self._rank:
+            buf = _pack_slot(self._state, local)
+        else:
+            buf = torch.empty(
+                m + 3 + self._state.fe_boundary[0].numel(), dtype=torch.int32,
+                device=self.device,
+            )
+        if self._group is not None:
+            dist.broadcast(buf, src=dist.get_global_rank(self._group, owner),
+                           group=self._group)
+        host = _host_copy(buf)
+        boundary = host[m + 3:].view(np.float32).reshape(self._state.fe_boundary.shape[1:])
+        return host[:m], int(host[m]), int(host[m + 1]), boundary, int(host[m + 2])
+
     def _sync_frontend(self, slot: int, session: StreamSession) -> None:
         """Pull the slot's device frontend context into the session."""
-        session.fe_boundary = _host_copy(self._state.fe_boundary[slot])
-        session.fe_phase = int(self._state.fe_phase[slot])
+        _, _, _, session.fe_boundary, session.fe_phase = self._read_slot(slot)
 
     def _evict(self, slot: int) -> None:
         """Pull the slot's device stream state back into its session."""
         session = self._slots[slot]
-        session.ring = _host_copy(self._state.rings[slot])
-        session.ring_pos = int(self._state.ring_pos[slot])
-        session.alarm = int(self._state.alarm[slot])
-        self._sync_frontend(slot, session)
+        (session.ring, session.ring_pos, session.alarm, session.fe_boundary,
+         session.fe_phase) = self._read_slot(slot)
         session.slot = None
         self._slots[slot] = None
 
     def _admit(self, slot: int, session: StreamSession) -> None:
-        """Splice the session's saved ring and frontend context into the slot."""
-        _splice_state(
-            self._state, slot, session.ring, session.ring_pos, session.alarm,
-            session.fe_boundary, session.fe_phase,
-        )
+        """Splice the session's saved ring and frontend context into the
+        slot (on a mesh, on the rank that holds it)."""
+        owner, local = divmod(slot, self._per_rank)
+        if owner == self._rank:
+            _splice_state(
+                self._state, local, session.ring, session.ring_pos, session.alarm,
+                session.fe_boundary, session.fe_phase,
+            )
         session.slot = slot
         session.queued = False
         self._slots[slot] = session
@@ -628,14 +756,26 @@ class SeizureEngine:
 
     def _deadline_exceeded(self) -> bool:
         """True iff a latency budget is set and the OLDEST queued chunk
-        (any session) has outlived it."""
+        (any session) has outlived it; on a mesh, on any rank's clock."""
         if self.latency_budget_s is None:
             return False
         oldest = min(
             (s.chunks[0][0] for s in self._sessions.values() if s.chunks),
             default=None,
         )
-        return oldest is not None and self._clock() - oldest >= self.latency_budget_s
+        late = oldest is not None and self._clock() - oldest >= self.latency_budget_s
+        return self._mesh_any(late)
+
+    def _mesh_any(self, flag: bool) -> bool:
+        """``flag`` or'ed over every rank of the mesh (itself without one):
+        one ``all_reduce`` of its maximum along each mesh dimension. Every
+        rank must call it at the same point."""
+        if self.mesh is None:
+            return flag
+        t = torch.tensor([int(flag)], dtype=torch.int32, device=self.device)
+        for group in self.mesh.get_all_groups():
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        return bool(_host_copy(t)[0])
 
     def poll(self, *, drain: bool = True) -> list:
         """Score ready chunks and return the events. drain=True scores
@@ -657,23 +797,27 @@ class SeizureEngine:
         return events
 
     def _step_once(self, active: list[int]) -> list:
-        depth = self.replay_depth
+        """One device step over this rank's slots; the events of every
+        slot."""
+        depth, lo = self.replay_depth, self._lo
         batch = np.zeros(
-            (self.max_batch, depth, self.chunk_windows, eeg_data.N_CHANNELS,
+            (self._per_rank, depth, self.chunk_windows, eeg_data.N_CHANNELS,
              eeg_data.WINDOW),
             np.float32,
         )
-        mask = np.zeros((self.max_batch, depth), np.int32)
+        mask = np.zeros((self._per_rank, depth), np.int32)
         popped: dict[int, int] = {}
         for i in active:
             session = self._slots[i]
             take = min(depth, len(session.chunks))
             for j in range(take):
-                _, batch[i, j] = session.chunks.popleft()
-                mask[i, j] = 1
+                _, chunk = session.chunks.popleft()
+                if lo <= i < lo + self._per_rank:
+                    batch[i - lo, j] = chunk
+                    mask[i - lo, j] = 1
             popped[i] = take
         program = self.program
-        self._state, votes, frac, alarm, preds = self._step(
+        self._state, *outs = self._step(
             self._state,
             torch.from_numpy(batch).to(self.device),
             torch.from_numpy(mask).to(self.device),
@@ -681,7 +825,9 @@ class SeizureEngine:
             cfg=program.cfg,
         )
         self.steps += 1
-        votes, frac, alarm, preds = (x.cpu().numpy() for x in (votes, frac, alarm, preds))
+        if self._group is not None:
+            outs = _gather_slot_rows(outs, self._group)
+        votes, frac, alarm, preds = (_host_copy(x) for x in outs)
         events: list = []
         for i in active:
             session = self._slots[i]
@@ -706,12 +852,25 @@ class SeizureEngine:
     def score_chunks(self, chunks) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Stateless: an assembled (B, W, C, N) batch -> (votes (B,),
         preictal_frac (B,), window_preds (B, W)) on the engine's device,
-        touching no session's ring."""
+        touching no session's ring. On a mesh each rank scores its share
+        of the batch's rows (B a multiple of the ``data`` size, else
+        ``ValueError``) and every rank returns the whole result."""
         program = self.program
-        chunks = torch.as_tensor(chunks, dtype=torch.float32, device=self.device)
-        return _score_chunks(
-            chunks, program.packed, program.feat_mean, program.feat_std, cfg=program.cfg
+        chunks = torch.as_tensor(chunks)
+        if chunks.shape[0] % self._parts:
+            raise ValueError(
+                f"score_chunks: a batch of {chunks.shape[0]} chunks does not split "
+                f"over mesh data axis {self._parts}"
+            )
+        per = chunks.shape[0] // self._parts
+        chunks = chunks[self._rank * per:(self._rank + 1) * per]
+        outs = _score_chunks(
+            chunks.to(device=self.device, dtype=torch.float32),
+            program.packed, program.feat_mean, program.feat_std, cfg=program.cfg,
         )
+        if self._group is not None:
+            outs = _gather_slot_rows(outs, self._group)
+        return tuple(outs)
 
     # -- persistence (snapshot / restore) ------------------------------------
 
@@ -733,9 +892,19 @@ class SeizureEngine:
             queue's order.
 
         Every leaf is a host copy: the running engine continues exactly as
-        if no snapshot had been taken."""
+        if no snapshot had been taken.
+
+        On a mesh every rank calls it: the state's rows are gathered from
+        the data axis into the unsharded (B, ...) layout (a mesh snapshot
+        restores without a mesh, and the other way round), the rank at
+        mesh coordinate 0 writes, and every rank returns once it has
+        written (or raises if it failed)."""
+        state = self._state
+        if self._group is not None:
+            shards = mr.all_gather_tree(state, self._group)
+            state = EngineState(*(torch.cat(rows) for rows in zip(*shards)))
         arrays: dict[str, np.ndarray] = {
-            f"state__{name}": _host_copy(leaf) for name, leaf in self._state._asdict().items()
+            f"state__{name}": _host_copy(leaf) for name, leaf in state._asdict().items()
         }
         arrays.update({f"program__{k}": v for k, v in self.program._to_arrays().items()})
         now = self._clock()
@@ -777,7 +946,18 @@ class SeizureEngine:
             "waiting": [s.patient_id for s in self._waiting],
         }
         arrays["host_json"] = np.frombuffer(json.dumps(host).encode(), dtype=np.uint8)
-        return ckpt_store.save(directory, step, arrays)
+        if self.mesh is None:
+            return ckpt_store.save(directory, step, arrays)
+        path, failed = os.path.join(directory, f"step_{step:08d}"), None
+        if not any(self.mesh.get_coordinate()):
+            try:
+                path = ckpt_store.save(directory, step, arrays)
+            except Exception as exc:  # noqa: BLE001 -- re-raised below, after the others know
+                failed = exc
+        # Also the barrier: no rank returns before the writer has written.
+        if self._mesh_any(failed is not None):
+            raise failed or RuntimeError(f"engine snapshot: the writing rank failed on {path!r}")
+        return path
 
     @classmethod
     def restore(
@@ -787,21 +967,24 @@ class SeizureEngine:
         *,
         megabatch: bool | None = None,
         clock=time.monotonic,
+        mesh=None,
         device: torch.device | str | None = None,
     ) -> "SeizureEngine":
         """Rebuild an engine from a ``snapshot`` of either package (the
         latest step when ``step`` is None) on ``device`` (CUDA by default):
         from here on it emits what the uninterrupted engine would have.
 
-        ``megabatch`` and ``clock`` may be overridden; everything else
-        comes from the snapshot. The reference's ``use_forest_kernel`` key
+        ``megabatch``, ``clock`` and ``mesh`` may be overridden; everything
+        else comes from the snapshot. On a mesh every rank reads the same
+        snapshot and keeps its own rows of the state. The reference's ``use_forest_kernel`` key
         is ignored: the port routes K1 by device. Queued-chunk ages are
         rebased onto ``clock``; the slot bindings and the waiting queue's
         order are restored as they were, so the first ``poll`` admits and
         evicts as the uninterrupted engine would. Raises
         ``FileNotFoundError`` for a missing or empty directory and
         ``ValueError`` for another snapshot format or a leaf whose shape
-        does not fit the engine."""
+        (in the manifest, checked before anything is installed) does not
+        fit the engine."""
         dev = resolve_device(device)
         if step is None:
             step = ckpt_store.latest_step(directory)
@@ -809,6 +992,7 @@ class SeizureEngine:
                 raise FileNotFoundError(
                     f"no engine snapshots under {directory!r} (empty or missing directory)"
                 )
+        like = ckpt_store.manifest_like(directory, step)
         arrays = ckpt_store.restore(directory, step)
         host = json.loads(arrays["host_json"].numpy().tobytes().decode())
         if host.get("format") != 1:
@@ -817,10 +1001,18 @@ class SeizureEngine:
                 f"in {directory!r} step {step}"
             )
         eng = host["engine"]
-        program = ScoringProgram._from_arrays(
-            {k[len("program__"):]: v for k, v in arrays.items() if k.startswith("program__")},
-            dev,
+        program_arrays = {
+            k[len("program__"):]: v for k, v in arrays.items() if k.startswith("program__")
+        }
+        ScoringProgram._check_shapes({
+            k[len("program__"):]: v.shape for k, v in like.items() if k.startswith("program__")
+        })
+        cfg = json.loads(program_arrays["cfg_json"].numpy().tobytes().decode())
+        _check_state_shapes(
+            {k: v.shape for k, v in like.items()}, max_batch=eng["max_batch"],
+            alarm_m=cfg["alarm_m"], fe_width=frontend.boundary_width(cfg["overlap"]),
         )
+        program = ScoringProgram._from_arrays(program_arrays, dev)
         engine = cls(
             program,
             max_batch=eng["max_batch"],
@@ -829,14 +1021,14 @@ class SeizureEngine:
             megabatch=eng["megabatch"] if megabatch is None else megabatch,
             latency_budget_s=eng["latency_budget_s"],
             clock=clock,
+            mesh=mesh,
             device=dev,
         )
         engine.steps = int(eng["steps"])
         engine.program_version = int(eng["program_version"])
         engine._state = _install_state(
             EngineState(*(arrays[f"state__{n}"] for n in EngineState._fields)),
-            max_batch=engine.max_batch, alarm_m=engine.alarm_m,
-            fe_width=engine.fe_width, device=dev,
+            rows=slice(engine._lo, engine._lo + engine._per_rank), device=dev,
         )
         now = engine._clock()
         boundary_shape = (engine.fe_width, eeg_data.N_CHANNELS, eeg_data.WINDOW)

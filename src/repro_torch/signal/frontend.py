@@ -226,7 +226,7 @@ def megabatch_step(
         halo_idx = torch.arange(d, device=chunks.device)[:, None] * w + arange_bw
         halos = stream[:, halo_idx]  # (B, D, bw, C, N)
     feats = chunk_features(chunks, cfg, halo=halos)
-    take = active.to(torch.int32).sum(dim=1)
+    take = active.to(torch.int32).sum(dim=1, dtype=torch.int32)  # int32, as phase
     # Last bw raw windows of (boundary ++ chunks[:take]); take == 0 keeps
     # the old boundary.
     rows = torch.arange(b, device=chunks.device)[:, None]

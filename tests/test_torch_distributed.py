@@ -1,8 +1,9 @@
-"""The port's MapReduce mesh mode (``torch.distributed``) on the CPU:
+"""The port's mesh mode (``torch.distributed``) on the CPU:
 ``MapReduce.run``, ``shuffle_by_key``, ``fit_mapreduce(mesh=)``,
 ``global_moments``, ``pipeline.fit(mesh=)``,
-``process_recording_mapreduce``, ``DistributedEnsemble`` and the
-launcher's ``--devices``, against their emulations and the JAX package.
+``process_recording_mapreduce``, ``DistributedEnsemble``, the launcher's
+``--devices`` and ``SeizureEngine(mesh=)``, against their emulations (the
+unsharded engine) and the JAX package.
 
 One world of two gloo CPU ranks (``launch.mesh.spawn_world``) runs every
 case once for the whole file (``tests/torch_dist_ranks.py``, which
@@ -20,6 +21,9 @@ Tolerances:
   * global moments: 1e-5 of max|want| (as ``test_global_moments_match_jax``).
   * features: 2e-3 z-units (the port's feature tests; MSPCA's eigh).
   * ensemble probabilities on converted members: 1e-6.
+  * the mesh engine against the unsharded engine in the same rank (one
+    intra-op thread each): every event field, ``preictal_frac`` and the
+    window predictions included, bit for bit.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from repro_torch.core import ensemble, forest_trainer as ft, mapreduce as mr
 from repro_torch.core import rotation_forest as rf
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import train_forest
+from repro_torch.serving import api
 from repro_torch.signal import eeg_data
 
 # One intra-op thread, as the ranks use: the emulations computed here
@@ -83,8 +88,19 @@ def _reference_blobs():
     return np.array(x[perm]), np.array(y[perm])
 
 
+def _engine_streams() -> dict:
+    """Three patients' streams of 4 chunks, from a generator of their own:
+    each turns preictal or back, so the 1-of-1 rule raises and clears."""
+    g = torch.Generator().manual_seed(31)
+    inter, pre = eeg_data.INTERICTAL, eeg_data.PREICTAL
+    plan = {3: [(inter, 120), (pre, 120)], 8: [(pre, 120), (inter, 120)],
+            13: [(inter, 60), (pre, 120), (inter, 60)]}
+    return {pid: torch.cat([eeg_data.generate_windows(g, pid, r, n) for r, n in parts]).numpy()
+            for pid, parts in plan.items()}
+
+
 @pytest.fixture(scope="module")
-def data():
+def data(tmp_path_factory):
     rng = np.random.default_rng(11)
     fit_x, fit_y = _blobs(7, 120, 12, 3, 1.6)
     rec = eeg_data.make_training_set(torch.Generator().manual_seed(21), 3, 60, 60)
@@ -97,6 +113,8 @@ def data():
         "rec_windows": rec.windows.numpy(), "rec_labels": rec.labels.numpy(),
         "ens_x": ens_x, "ens_y": ens_y,
         "logits": rng.normal(size=(N, 6, 3)).astype(np.float32),
+        "engine_streams": _engine_streams(),
+        "engine_dir": str(tmp_path_factory.mktemp("mesh_engine")),
     }
 
 
@@ -270,6 +288,55 @@ def test_ensemble_predict_proba_matches_jax(data):
 
 
 # ---------------------------------------------------------------------------
+# SeizureEngine(mesh=)
+# ---------------------------------------------------------------------------
+
+def _assert_identical(got, want) -> None:
+    """Every event field equal, bit for bit (``preictal_frac`` included)."""
+    assert [type(e).__name__ for e in got] == [type(e).__name__ for e in want]
+    for g, w in zip(got, want):
+        if isinstance(w, api.ChunkScored):
+            assert g[:5] + (g.program_version,) == w[:5] + (w.program_version,)
+            np.testing.assert_array_equal(g.window_preds, w.window_preds)
+        else:
+            assert tuple(g) == tuple(w)
+
+
+@pytest.mark.parametrize("overlap,megabatch,extra", ranks.ENGINE_CASES)
+def test_mesh_engine_equals_unsharded(world, overlap, megabatch, extra):
+    """Two slots over two ranks, three sessions (evictions), every alarm
+    reset after round 1 and a program swapped in after round 2: the mesh
+    engine emits the unsharded engine's events on every rank. Snapshot
+    cases resume a mesh snapshot without a mesh and an unsharded snapshot
+    on the mesh; in the latency case one rank's clock decides for both."""
+    for rank in range(N):
+        case = world[rank]["engine"][f"overlap{overlap}_megabatch{megabatch}"]
+        plain, mesh = case["plain"], case["mesh"]
+        _assert_identical(mesh, plain)
+        _assert_identical(mesh, world[0]["engine"][f"overlap{overlap}_megabatch{megabatch}"]["mesh"])
+        kinds = [type(e).__name__ for e in plain]
+        assert kinds.count("ChunkScored") == 12
+        assert "AlarmRaised" in kinds and "AlarmCleared" in kinds
+        assert {e.program_version for e in plain if isinstance(e, api.ChunkScored)} == {0, 1}
+        assert case["mesh_slots"] == (1, 1)  # this rank's one slot of two, a ring of 1
+        if extra == "snapshots":
+            for key in ("mesh_snapshot_unsharded", "plain_snapshot_on_mesh"):
+                n_head, tail = case[key]
+                assert 0 < n_head < len(mesh)
+                _assert_identical(tail, mesh[n_head:])
+
+
+def test_mesh_engine_score_chunks_and_indivisible_batches(world):
+    for rank in range(N):
+        out = world[rank]["engine"]
+        (got, want) = out["score_chunks"]
+        for g, w in zip(got, want):
+            assert g.shape[0] == 2 and torch.equal(g, w)
+        assert "not divisible by mesh data axis 2" in out["max_batch_error"]
+        assert "does not split over mesh data axis 2" in out["score_chunks_error"]
+
+
+# ---------------------------------------------------------------------------
 # The launcher, the backends, the world
 # ---------------------------------------------------------------------------
 
@@ -331,10 +398,28 @@ def test_a_rank_reports_its_result_or_its_traceback(monkeypatch):
     assert not dist.is_initialized()
 
 
+def test_a_failed_rank_ends_the_world_after_the_grace_period(monkeypatch):
+    """Once rank 0 has failed, rank 1 (which would wait 600 s) gets the
+    grace period, not the world's timeout, and the error names it."""
+    monkeypatch.setattr(mesh_lib, "_GRACE_S", 1.0)
+    result = mesh_lib.spawn_world(ranks.fail_or_hang, 2, backend="gloo", device="cpu",
+                                  timeout_s=300.0)
+    assert result.returncode == 1 and result.results == [None, None]
+    assert "ValueError: rank 0 fails" in result.errors[0]
+    assert result.errors[1] == (
+        "no result within the 1 s grace period after rank 0 failed; terminated")
+
+
 def test_rank_helper_imports_only_the_port():
-    path = Path(__file__).with_name("torch_dist_ranks.py")
-    for node in ast.walk(ast.parse(path.read_text())):
-        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
-                 else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
-        for name in names:
-            assert name.split(".")[0] not in ("jax", "jaxlib", "repro", "test_torch_distributed")
+    """The rank helper, and the port's static checks (which a rank may run
+    on the card), import neither JAX nor the JAX package nor a test."""
+    analysis = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "analysis"
+    paths = [Path(__file__).with_name("torch_dist_ranks.py"), *sorted(analysis.glob("*.py"))]
+    assert len(paths) == 8
+    for path in paths:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            for name in names:
+                assert name.split(".")[0] not in (
+                    "jax", "jaxlib", "repro", "test_torch_distributed"), f"{path}: {name}"

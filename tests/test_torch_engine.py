@@ -125,6 +125,32 @@ def test_store_layout_matches_jax(tmp_path):
 # Device rule
 # ---------------------------------------------------------------------------
 
+def test_manifest_like_matches_jax(jprogram, tmp_path, monkeypatch):
+    """On a JAX-saved program (and a bf16 leaf) the port's manifest_like
+    gives the reference's shapes and dtypes, and a program whose manifest
+    does not form one forest is refused before any array is read."""
+    jprogram.save(str(tmp_path / "j"), step=2)
+    jstore.save(str(tmp_path / "bf"), 0, {"w": jnp.ones((2, 3), jnp.bfloat16)})
+    for directory, step in ((tmp_path / "j", 2), (tmp_path / "bf", 0)):
+        got = store.manifest_like(str(directory), step)
+        want = jstore.manifest_like(str(directory), step)
+        assert got.keys() == want.keys()
+        for k, w in want.items():
+            assert got[k].shape == tuple(w.shape)
+            assert str(got[k].dtype).removeprefix("torch.") == str(np.dtype(w.dtype))
+    assert set(got) == {"w"} and got["w"].dtype == torch.bfloat16
+
+    arrays = store.restore(str(tmp_path / "j"), 2)
+    store.save(str(tmp_path / "bad"), 0, dict(arrays, thr=arrays["thr"][:, :3]))
+
+    def no_read(*args):
+        raise AssertionError("an array was read before the manifest check")
+
+    monkeypatch.setattr(store, "restore", no_read)
+    with pytest.raises(ValueError, match="inconsistent program leaves"):
+        api.ScoringProgram.load(str(tmp_path / "bad"), device="cpu")
+
+
 def test_entry_points_default_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
