@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of the seizure-scoring, training (emulated
-and over torch.distributed), dense LM serving and hybrid LM serving paths
-on one CUDA card.
+and over torch.distributed), dense LM serving, LM training and hybrid LM
+serving paths on one CUDA card.
 
 Run from the root of a checkout, with no arguments:
 
@@ -162,6 +162,28 @@ Phases (any failure exits non-zero):
      LM_MARGIN. Profiler traces of one prefill and one decode step, with
      K5's share and the copies' beside it. The model is freed before
      phase 8.
+  7b. LM training at the full width and depth of qwen3-0.6b (751.6 M
+     parameters drawn from a generator of their own, float32 masters,
+     bf16 compute, remat per block as published): AdamW with
+     ``cosine_warmup`` on a ``BatchStream`` of batch 8 x 2048 in 4
+     microbatches, 4 steps (step ms, tokens/s, peak memory). (1) Step 0's
+     cross-entropy against the same batch's through ``Model.forward``
+     under no_grad, which reaches K5 (28 launches a microbatch), within
+     TRAIN_CE_ULPS (1/16) of a bf16 ulp of the loss. (2) One microbatch's bf16
+     gradients against a float32-compute step's on the same masters, each
+     leaf within TRAIN_GRAD_REL of its own scale. (3) At batch 2, the step
+     with microbatches=2 against microbatches=1 from copies of one state:
+     the loss, the clipped gradient (read from m) and the update, each
+     leaf within TRAIN_MICRO_REL. (4) Four steps on one fixed batch (lr
+     TR_FIXED_LR): the loss falls. (5) K5 and K6 launch 0 times in every train step, and a
+     CUDA input that requires grad makes K5's router raise. (6) The
+     trained state saved as a train checkpoint and restored bit for bit,
+     its masters loaded into the serving model, which serves one static
+     batch through K5 (28 launches). Then zamba2-7b at its published
+     widths, depth cut to one group (the shared attention site and its 6
+     Mamba2 blocks; all 81 blocks' state would take ~108 GB): one bf16
+     train step, its gradients against a float32-compute step's as in
+     (2), and K6 (and K5) launching 0 times.
   8. Hybrid LM serving at the full width and depth of zamba2-7b (81 Mamba2
      blocks behind 14 sites of one shared attention block, 6.75 B
      parameters drawn from a seeded generator, bf16 compute). K6 against
@@ -192,7 +214,7 @@ Phases (any failure exits non-zero):
      prefill copies no tensor of B H S N elements with a head axis.
   9. A ``kernels`` JSON line (K1-K6; launches summed over the counted
      runs of phases 3, 4b, 6, 6c (every rank's mesh fit), 6d (every
-     rank's engine runs), 7 and 8), the
+     rank's engine runs), 7, 7b (its serving forwards) and 8), the
      script's seconds, the card line,
      and the last line ``{"ok": true, "device": {...}}``.
 """
@@ -265,6 +287,43 @@ LM_MARGIN = 0.125
 # f32: one softmax in two orders of summation. tools/flash_faults.py plants
 # faults in the kernel and reads how far over this limit each one lands.
 FLASH_TOL = {"bfloat16": (2.0**-7, 2.0**-5), "float32": (2.0**-17, 2.0**-17)}
+# Phase 7b: LM training at the full width of qwen3-0.6b (random weights),
+# then one group of zamba2-7b.
+TR_BATCH, TR_SEQ, TR_MICRO, TR_STEPS = 8, 2048, 4, 4
+TR_LR = 3e-4
+TR_SMALL_BATCH = 2  # checks (3) and (4), and the hybrid step
+# (4) AdamW on one fixed batch, from the trained state's moments, at a
+# constant TR_LR / 100: at this state a step of 3e-5 overshoots (the loss
+# rises by ~1.0 at the third step, in float32 compute as well, so it is the
+# optimizer's step, not bf16), at 3e-6 it falls at every step
+# (tools/train_fixed_batch.py, PR 22, run D).
+TR_FIXED_LR = TR_LR / 100
+TR_CKPT_DIR = ROOT / "build" / "train_ckpt"
+# (1) The training forward (plain _sdpa, bf16) and the serving forward (K5)
+# differ only in how attention rounds: about one bf16 ulp of each attention
+# output, carried through 28 layers into bf16 logits (phase 7 holds them
+# within 8 ulps of the largest, 2^-5 each at |logit| in [4, 8)). A token's
+# cross-entropy moves by a few such ulps at most, with either sign, and the
+# loss is a mean over 16384 tokens (sqrt: 128-fold): far below one bf16 ulp
+# of the loss itself (2^-4 for a loss in [8, 16)). The tolerance is
+# TRAIN_CE_ULPS = 1/16 of that ulp (2^-8 at this loss, twice 8 logit ulps
+# over 128).
+TRAIN_CE_ULPS = 2.0**-4
+# (2) bf16 against float32 compute, per leaf: ||g16 - g32|| <= REL ||g32||
+# and max|g16 - g32| <= 2 REL max|g32|. Each bf16 rounding is 2^-9
+# relative; the backward of 28 blocks rounds every activation and its
+# gradient several times, and the reduced configs on the CPU (8 blocks)
+# read 0.5-2.1% (Frobenius) and up to 2.7% (max): 2^-4 (6.25%) leaves
+# room for the depth; a wrong backward is O(1).
+TRAIN_GRAD_REL = 2.0**-4
+# (3) microbatches=2 against 1 on the same 2 rows, both bf16: the two
+# differ in each microbatch's bf16 weight gradient (rounded once per
+# microbatch instead of once over both rows) and in GEMM shapes (cuBLAS
+# may pick other kernels for 2048 rows than for 4096, a bf16 ulp here and
+# there), far less than bf16 against float32: the loss within one bf16
+# ulp, each leaf's clipped gradient and update within 2^-5 of its scale
+# (Frobenius).
+TRAIN_MICRO_REL = 2.0**-5
 # Phase 8: hybrid serving at the full width of zamba2-7b (random weights).
 HY_ARCH = "zamba2-7b"
 HY_SLOTS = 8
@@ -2760,6 +2819,314 @@ def lm_phase(gen) -> tuple[dict, int]:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7b: LM training (qwen3-0.6b at full width and depth; one zamba2 group)
+# ---------------------------------------------------------------------------
+
+def train_cfgs():
+    """(qwen3-0.6b as published, zamba2-7b cut to one group)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    hy = get_config(HY_ARCH)
+    return get_config(LM_ARCH), dataclasses.replace(hy, n_layers=hy.attn_every)
+
+
+def bf16_ulp(x: float) -> float:
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
+
+
+def grad_gaps(got, want) -> dict[str, tuple[float, float]]:
+    """Per leaf (||got - want|| / ||want||, max|got - want| / max|want|)."""
+    from repro_torch.models import params as pr
+
+    out = {}
+    for (path, a), (_, b) in zip(pr.flatten(got), pr.flatten(want)):
+        d = (a.float() - b.float())
+        out[".".join(path)] = (float(d.norm() / b.float().norm()),
+                               float(d.abs().max() / b.float().abs().max()))
+    return out
+
+
+def check_gaps(label: str, gaps: dict, rel: float, max_rel: float | None) -> None:
+    worst_f = max(gaps.items(), key=lambda kv: kv[1][0])
+    worst_m = max(gaps.items(), key=lambda kv: kv[1][1])
+    print(f"{label}: {len(gaps)} leaves; worst Frobenius gap {worst_f[1][0]:.4e} "
+          f"({worst_f[0]}), worst max gap {worst_m[1][1]:.4e} ({worst_m[0]}); median "
+          f"Frobenius {statistics.median(g[0] for g in gaps.values()):.4e} (tol {rel:.4g}"
+          + ("" if max_rel is None else f", max {max_rel:.4g}") + ")")
+    for key, (f, m) in gaps.items():
+        if not f <= rel or (max_rel is not None and not m <= max_rel):
+            fail(f"{label}: leaf {key} differs by {f} (Frobenius) / {m} (max) of its scale")
+
+
+def serving_ce(model, batch, micro: int) -> float:
+    """The batch's mean next-token cross-entropy through ``Model.forward``
+    (the serving path, K5 at S % 512 == 0), one microbatch at a time:
+    float32 log-softmax, as ``Model.loss``."""
+    import torch
+
+    from repro_torch.training.trainer import microbatch
+
+    ces = []
+    with torch.no_grad():
+        for i in range(micro):
+            mb = microbatch(batch, micro, i)
+            logits, _ = model.forward(mb)
+            logp = torch.log_softmax(logits, dim=-1)
+            ces.append(-torch.gather(logp, -1, mb["targets"].long()[..., None]).mean())
+            del logits, logp
+    return float(sum(ces) / micro)
+
+
+def bf16_and_f32_grads(model, cfg, params, batch):
+    """(loss, grads) of ``batch`` in the model's bf16 compute and in a
+    float32-compute model on the same masters."""
+    import dataclasses
+
+    from repro_torch.models import build
+    from repro_torch.training.trainer import value_and_grad
+
+    (l16, _), g16 = value_and_grad(model.loss, has_aux=True)(params, batch)
+    f32 = build(dataclasses.replace(cfg, dtype="float32"))
+    (l32, _), g32 = value_and_grad(f32.loss, has_aux=True)(params, batch)
+    return (float(l16), g16), (float(l32), g32)
+
+
+def trace_train_step(fn) -> None:
+    """Device busy and idle share of one train step of one microbatch
+    (after a warm-up step), and its largest kernels, summed by kind."""
+    wall_ms, busy_ms, by_name = device_activity(fn, "lm_train_step_trace")
+    if busy_ms is None:
+        print(f"lm train trace one step ({TR_SMALL_BATCH} x {TR_SEQ}): {wall_ms:.3f} ms wall; "
+              "the profiler recorded no device activity: busy and idle share not measured")
+        return
+    # cuBLAS's Hopper GEMMs are named nvjet_*.
+    kinds = {"gemm": ("gemm", "nvjet", "xmma", "cutlass", "sm90"), "copy": ("copy", "memcpy"),
+             "softmax": ("softmax",), "reduce": ("reduce",), "elementwise": ("elementwise",)}
+    sums = {k: 0.0 for k in kinds}
+    for name, (ms, _) in by_name.items():
+        low = name.lower()
+        kind = next((k for k, keys in kinds.items() if any(s in low for s in keys)), None)
+        if kind is not None:
+            sums[kind] += ms
+    print(f"lm train trace one step ({TR_SMALL_BATCH} x {TR_SEQ}, one microbatch, AdamW "
+          f"included): {wall_ms:.3f} ms wall (profiler on), device busy {busy_ms:.3f} ms, idle "
+          f"share {1 - busy_ms / wall_ms:.4f}, {sum(n for _, n in by_name.values())} device "
+          f"activities; by kind (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in sums.items()))
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"lm train trace kernel: {ms:.3f} ms in {n} launches: {name[:110]}")
+
+
+def lm_training_phase(smi: str) -> int:
+    """Phase 7b. Returns K5's launches in the phase's serving forwards."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.pipeline import BatchStream
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import build
+    from repro_torch.models import params as pr
+    from repro_torch.optim import AdamWConfig, adamw, cosine_warmup
+    from repro_torch.training.trainer import (TrainState, clone_tree, make_train_step,
+                                              microbatch, restore_state, save_state,
+                                              train_state_shapes)
+
+    cfg, hy_cfg = train_cfgs()
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build(cfg).init(torch.Generator(device="cuda").manual_seed(SEED + 7), device="cuda")
+    params = model.master_params()
+    opt = adamw(AdamWConfig(lr=TR_LR), cosine_warmup(TR_LR, 1, TR_STEPS))
+    state = TrainState(params, opt.init(params))
+    stream = BatchStream(cfg, InputShape("train", TR_SEQ, TR_BATCH, "train"), seed=SEED,
+                         device="cuda")
+    step = make_train_step(model, opt, microbatches=TR_MICRO)
+    print(f"lm train model: {cfg.name}, {model.param_count() / 1e6:.1f} M parameters, "
+          f"{cfg.n_layers} layers, remat {cfg.remat}, compute {cfg.dtype}, float32 masters and "
+          f"AdamW m, v; batch {TR_BATCH} x {TR_SEQ} in {TR_MICRO} microbatches, lr {TR_LR} "
+          f"cosine_warmup(1, {TR_STEPS})")
+
+    # (1) The serving forward's cross-entropy of batch 0, through K5.
+    reset_counts()
+    batch0 = stream.batch_at(0)
+    serve_ce = serving_ce(model, batch0, TR_MICRO)
+    k5_serve = launch_counts()["flash_attention"]
+    if k5_serve != cfg.n_layers * TR_MICRO:
+        fail(f"the serving forward launched K5 {k5_serve} times, expected "
+             f"{cfg.n_layers * TR_MICRO}")
+
+    # The train steps.
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i, batch in zip(range(TR_STEPS), stream):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        if i == 0:
+            ce0 = float(metrics["ce"])
+    train_counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(times[1:])
+    print(f"lm train steps: losses {[round(x, 5) for x in losses]}; step ms "
+          f"{[round(t * 1e3, 1) for t in times]} (the first holds the warm-up), median of "
+          f"steps 1-{TR_STEPS - 1} {step_s * 1e3:.3f} ms = {TR_BATCH * TR_SEQ / step_s:.1f} "
+          f"tokens/s; peak memory {peak / 1e9:.2f} GB allocated; launches {train_counts}; "
+          f"card {smi}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite training loss: {losses}")
+    if any(train_counts.values()):
+        fail(f"a kernel launched inside the train steps: {train_counts}")
+    tol = TRAIN_CE_ULPS * bf16_ulp(ce0)
+    print(f"lm train check 1: step 0 cross-entropy {ce0:.6f} (training forward, plain "
+          f"attention) against {serve_ce:.6f} (serving forward, K5 {k5_serve} launches): gap "
+          f"{abs(ce0 - serve_ce):.4e} (tol {tol}, {TRAIN_CE_ULPS} bf16 ulp of the loss)")
+    if not abs(ce0 - serve_ce) <= tol:
+        fail(f"check 1: training and serving cross-entropy differ by {abs(ce0 - serve_ce)}")
+
+    # (2) bf16 against float32 compute, one microbatch, the trained masters.
+    reset_counts()
+    mb = microbatch(stream.batch_at(0), TR_MICRO, 0)
+    (l16, g16), (l32, g32) = bf16_and_f32_grads(model, cfg, state.params, mb)
+    print(f"lm train check 2: one microbatch's loss bf16 {l16:.6f}, float32 {l32:.6f}")
+    check_gaps("lm train check 2 (bf16 against float32 gradients)", grad_gaps(g16, g32),
+               TRAIN_GRAD_REL, 2 * TRAIN_GRAD_REL)
+    del g16, g32
+
+    # (5) K5 has no backward: its router refuses a CUDA input that requires grad.
+    q = torch.zeros((1, 512, 2, 128), device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    kv = torch.zeros((1, 512, 1, 128), device="cuda", dtype=torch.bfloat16)
+    try:
+        flash_ops.flash_attention(q, kv, kv)
+        fail("flash_attention took a CUDA input that requires grad")
+    except RuntimeError as exc:
+        if "no backward" not in str(exc):
+            raise
+    if any(launch_counts().values()):
+        fail(f"a kernel launched in check 2 or 5: {launch_counts()}")
+
+    # (6) Train checkpoint -> restore -> serve.
+    shutil.rmtree(TR_CKPT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    save_state(str(TR_CKPT_DIR), TR_STEPS, state)
+    save_s = time.perf_counter() - t0
+    n_bytes = sum(f.stat().st_size for f in TR_CKPT_DIR.rglob("*.npy"))
+    t0 = time.perf_counter()
+    restored = restore_state(str(TR_CKPT_DIR), TR_STEPS, like=train_state_shapes(model, opt),
+                             device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    shutil.rmtree(TR_CKPT_DIR, ignore_errors=True)
+    def leaves(s):
+        return pr.flatten({"p": s.params, "m": s.opt.m, "v": s.opt.v, "step": s.opt.step})
+
+    if not all(torch.equal(a, b) for (_, a), (_, b) in zip(leaves(restored), leaves(state))):
+        fail("check 6: the restored train state differs from the saved one")
+    model.load_params(restored.params, device="cuda")
+    del restored
+    rng = np.random.default_rng(SEED + 7)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32) for n in (2048, 1024)]
+    reset_counts()
+    toks, calls, seconds = lm_static(model, prompts, slots=2, max_seq=TR_SEQ + 8, max_new=4)
+    k5_handoff = launch_counts()["flash_attention"]
+    finite = all(bool(torch.isfinite(c["logits"]).all())
+                 for c in calls["prefill"] + calls["decode"])
+    print(f"lm train check 6: state saved in {save_s:.2f} s ({n_bytes / 1e9:.2f} GB), restored in "
+          f"{restore_s:.2f} s, equal bit for bit; its masters served one static batch of "
+          f"prompts (2048, 1024), 4 new tokens each, in {seconds:.3f} s: tokens {toks}, K5 "
+          f"launches {k5_handoff}, logits finite {finite}")
+    if k5_handoff != cfg.n_layers or not finite:
+        fail(f"check 6: K5 launched {k5_handoff} times (expected {cfg.n_layers}), finite {finite}")
+    del calls
+
+    # (3) microbatches=2 against 1, from copies of the trained state, at batch 2.
+    small = stream.batch_at(TR_STEPS)
+    small = {k: v[:TR_SMALL_BATCH] for k, v in small.items()}
+    before = clone_tree(state)
+    a = clone_tree(state)
+    reset_counts()
+    a, ma = make_train_step(model, opt, microbatches=2)(a, small)
+    b, mb1 = make_train_step(model, opt)(state, small)
+    del state
+
+    def clipped_grad(s):
+        return {path: (m - AdamWConfig.b1 * m0) / (1 - AdamWConfig.b1)
+                for (path, m), (_, m0) in zip(pr.flatten(s.opt.m), pr.flatten(before.opt.m))}
+
+    def update(s):
+        return {path: p - p0 for (path, p), (_, p0) in
+                zip(pr.flatten(s.params), pr.flatten(before.params))}
+
+    gap = abs(float(ma["loss"]) - float(mb1["loss"]))
+    tol = bf16_ulp(float(mb1["loss"]))
+    print(f"lm train check 3: batch {TR_SMALL_BATCH}, loss microbatches=2 "
+          f"{float(ma['loss']):.6f}, microbatches=1 {float(mb1['loss']):.6f}, gap {gap:.4e} "
+          f"(tol {tol})")
+    if not gap <= tol:
+        fail(f"check 3: the losses differ by {gap}")
+    for label, fn in (("clipped gradient", clipped_grad), ("update", update)):
+        got, want = fn(a), fn(b)
+        check_gaps(f"lm train check 3 ({label}, microbatches=2 against 1)",
+                   grad_gaps(pr.unflatten(got.items()), pr.unflatten(want.items())),
+                   TRAIN_MICRO_REL, None)
+    del a, before
+
+    # (4) Four steps on one fixed batch.
+    fixed = make_train_step(model, adamw(AdamWConfig(lr=TR_FIXED_LR)))
+    fixed_losses = []
+    for _ in range(4):
+        b, m = fixed(b, small)
+        fixed_losses.append(float(m["loss"]))
+    print(f"lm train check 4: four steps on one fixed batch of {TR_SMALL_BATCH} at lr "
+          f"{TR_FIXED_LR:g}: losses {[round(x, 5) for x in fixed_losses]}")
+    if not fixed_losses[-1] < fixed_losses[0]:
+        fail(f"check 4: the loss did not fall: {fixed_losses}")
+    if any(launch_counts().values()):
+        fail(f"a kernel launched in the train steps of checks 3-4: {launch_counts()}")
+    trace_train_step(lambda: fixed(b, small))
+    del b, model, params
+    torch.cuda.empty_cache()
+
+    # The hybrid: one group of zamba2-7b, one bf16 train step.
+    torch.cuda.reset_peak_memory_stats()
+    hmodel = build(hy_cfg)
+    hparams = hmodel.init(torch.Generator(device="cuda").manual_seed(SEED + 8),
+                          device="cuda").master_params()
+    hb = BatchStream(hy_cfg, InputShape("train", TR_SEQ, TR_SMALL_BATCH, "train"), seed=SEED,
+                     device="cuda").batch_at(0)
+    reset_counts()
+    hopt = adamw(AdamWConfig(lr=TR_LR))
+    hstate = TrainState(hparams, hopt.init(hparams))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hstate, hm = make_train_step(hmodel, hopt)(hstate, hb)
+    torch.cuda.synchronize()
+    h_step = time.perf_counter() - t0
+    (l16, g16), (l32, g32) = bf16_and_f32_grads(hmodel, hy_cfg, hstate.params, hb)
+    counts = launch_counts()
+    print(f"hybrid train: {hy_cfg.name} cut to {hy_cfg.n_layers} Mamba2 blocks behind one "
+          f"shared attention site ({hmodel.param_count() / 1e6:.1f} M parameters), batch "
+          f"{TR_SMALL_BATCH} x {TR_SEQ}: one step {h_step * 1e3:.1f} ms (the first, with its "
+          f"warm-up), loss {float(hm['loss']):.6f}; then loss bf16 {l16:.6f}, float32 "
+          f"{l32:.6f}; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+          f"{counts}")
+    if counts["ssd_chunks"] or counts["flash_attention"]:
+        fail(f"a kernel launched in the hybrid train step: {counts}")
+    check_gaps("hybrid train (bf16 against float32 gradients)", grad_gaps(g16, g32),
+               TRAIN_GRAD_REL, 2 * TRAIN_GRAD_REL)
+    del hmodel, hstate, g16, g32, hparams
+    torch.cuda.empty_cache()
+    print(f"phase 7b (LM training): {time.perf_counter() - t_phase:.1f} s")
+    return k5_serve + k5_handoff
+
+
+# ---------------------------------------------------------------------------
 # Phase 8: hybrid serving (zamba2-7b, K6)
 # ---------------------------------------------------------------------------
 
@@ -3254,6 +3621,9 @@ def main() -> int:
     # Phase 7.
     flash_rows, launches["flash_attention"] = lm_phase(gen)
     rows.update(flash_rows)
+
+    # Phase 7b.
+    launches["flash_attention"] += lm_training_phase(smi)
 
     # Phase 8.
     ssd_rows, launches["ssd_chunks"] = hybrid_phase(gen)

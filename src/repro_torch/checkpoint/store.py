@@ -149,5 +149,6 @@ def restore(directory: str, step: int) -> dict[str, torch.Tensor]:
                     f"checkpoint leaf {key!r}: file dtype {arr.dtype} != "
                     f"manifest dtype {entry['dtype']}"
                 )
-            out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+            # ascontiguousarray makes a 0-d array 1-d; keep the saved shape.
+            out[key] = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
     return out

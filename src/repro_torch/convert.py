@@ -15,7 +15,11 @@ and ``*_to_arrays`` give the dict the reference's tuples are built from.
 An LM parameter tree (the reference's nested dict from ``Model.init``)
 crosses as a state dict keyed by its paths joined with ``.``
 (``lm_params_from_jax``), which ``repro_torch.models.Model.load_params``
-takes.
+takes. A train state crosses as its four parts, the reference's
+``TrainState(params, AdamWState(step, m, v))`` read with ``numpy.asarray``
+(``train_state_from_jax``), and back as numpy trees the reference's
+tuples are built from (``train_state_to_jax``), so both packages can take
+the next step from the same state.
 
 Every direction is numpy-only, so neither package imports the other.
 """
@@ -29,8 +33,10 @@ from repro_torch.core import decision_tree as dt
 from repro_torch.core import rotation_forest as rf
 from repro_torch.device import resolve_device
 from repro_torch.models import params as lm_params
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.serving.api import ScoringProgram
 from repro_torch.signal.pipeline import FittedPipeline
+from repro_torch.training.trainer import TrainState
 
 _INTS = ("split_feature", "split_bin")
 
@@ -117,3 +123,32 @@ def lm_params_from_jax(tree) -> dict[str, torch.Tensor]:
         ".".join(path): torch.from_numpy(np.array(leaf, dtype=np.float32))
         for path, leaf in lm_params.flatten(tree)
     }
+
+
+def _lm_tree(tree, dev: torch.device) -> dict:
+    return lm_params.unflatten((tuple(key.split(".")), t.to(dev))
+                               for key, t in lm_params_from_jax(tree).items())
+
+
+def train_state_from_jax(params, step, m, v,
+                         device: torch.device | str | None = None) -> TrainState:
+    """The port's ``TrainState`` from the parts of the reference's: the
+    parameter tree and the AdamW step, m and v (arrays read with
+    ``numpy.asarray``), on ``device`` (CUDA by default)."""
+    dev = resolve_device(device)
+    step_t = torch.from_numpy(np.array(step, dtype=np.int32)).to(dev)
+    return TrainState(_lm_tree(params, dev),
+                      AdamWState(step_t, _lm_tree(m, dev), _lm_tree(v, dev)))
+
+
+def train_state_to_jax(state: TrainState) -> tuple[dict, np.ndarray, dict, dict]:
+    """Inverse of ``train_state_from_jax``: (params, step, m, v) as nested
+    dicts of float32 numpy arrays and an int32 step, the reference's
+    ``TrainState(params, AdamWState(step, m, v))`` parts."""
+
+    def tree(t):
+        return lm_params.unflatten((path, leaf.detach().cpu().numpy())
+                                   for path, leaf in lm_params.flatten(t))
+
+    return (tree(state.params), state.opt.step.detach().cpu().numpy(),
+            tree(state.opt.m), tree(state.opt.v))

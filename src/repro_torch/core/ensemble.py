@@ -1,5 +1,5 @@
-"""Distributed ensembles: the twin of ``repro.core.ensemble``'s
-``DistributedEnsemble`` and ``ensemble_vote``.
+"""Distributed ensembles: the twin of ``repro.core.ensemble``
+(``DistributedEnsemble``, ``ensemble_grads`` and ``ensemble_vote``).
 
 The paper trains the rotation forest "on each dataset in parallel using
 a cluster of computers": ensemble members are embarrassingly parallel
@@ -76,6 +76,16 @@ class DistributedEnsemble:
         return torch.argmax(self.predict_proba(params, x), dim=-1)
 
 
+def ensemble_grads(loss_fn: Callable, params: Any, batch: Any, ensemble_axis: str | None):
+    """Per-member (loss, grads): exactly data-parallel gradients WITHOUT
+    the reduction over ``ensemble_axis`` (members see disjoint data shards
+    and diverge: that is the bagging). With ``ensemble_axis=None`` this is
+    the plain single-model (loss, grads)."""
+    from repro_torch.training.trainer import value_and_grad
+
+    return value_and_grad(loss_fn)(params, batch)
+
+
 def ensemble_vote(logits: torch.Tensor, mesh, axis_name: str = "data") -> torch.Tensor:
     """Vote-reduce this rank's member logits: softmax, then the mean over
     the ranks of ``mesh``'s ``axis_name`` dimension (gathered and folded
@@ -84,4 +94,4 @@ def ensemble_vote(logits: torch.Tensor, mesh, axis_name: str = "data") -> torch.
     return mr.reduce_mean(mr.mesh_shards(mesh, axis_name).gather([probs]))
 
 
-__all__ = ["DistributedEnsemble", "ensemble_vote"]
+__all__ = ["DistributedEnsemble", "ensemble_grads", "ensemble_vote"]

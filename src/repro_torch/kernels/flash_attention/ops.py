@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._route import on_cuda
+from repro_torch.kernels._route import on_cuda, refuse_grad
 from repro_torch.kernels.flash_attention import kernel as _kernel
 from repro_torch.kernels.flash_attention import ref as _ref
 
@@ -33,7 +33,10 @@ def reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q: (B, S, H, hd); k, v: (B, S, K, hd) with H % K == 0."""
+    """q: (B, S, H, hd); k, v: (B, S, K, hd) with H % K == 0. The kernel
+    has no backward: a CUDA input that requires grad raises (the model's
+    gate sends those to the plain attention paths)."""
     if on_cuda(q, "flash_attention"):
+        refuse_grad("flash_attention", q, k, v)
         return _kernel.flash_attention(q, k, v, causal=causal)
     return reference(q, k, v, causal=causal)

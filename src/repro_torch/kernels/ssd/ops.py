@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._route import on_cuda
+from repro_torch.kernels._route import on_cuda, refuse_grad
 from repro_torch.kernels.ssd import kernel as _kernel
 from repro_torch.kernels.ssd import ref as _ref
 
@@ -25,7 +25,9 @@ def ssd_scan_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torc
                      chunk: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
     """q = C, k = B: (B, S, N), each row's shared by its heads; v: (B, S, H,
     P); ld: (B, S, H) log-decay <= 0, all of one type. Returns (y (B, S, H,
-    P) in that type, final_state (B, H, N, P) float32)."""
+    P) in that type, final_state (B, H, N, P) float32). K6 has no
+    backward: a CUDA input that requires grad raises (the model's gate
+    sends those to ``scan_core``)."""
     b, s, n = q.shape
     h, p = v.shape[2:]
     chunk = min(chunk, s)
@@ -33,7 +35,10 @@ def ssd_scan_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ld: torc
     nc = s // chunk
     qc, kc = q.reshape(b, nc, chunk, n), k.reshape(b, nc, chunk, n)
     vc, ldc = v.reshape(b, nc, chunk, h, p), ld.reshape(b, nc, chunk, h)
-    run = _kernel if on_cuda(q, "ssd_scan") else _ref
+    run = _ref
+    if on_cuda(q, "ssd_scan"):
+        refuse_grad("ssd_scan", q, k, v, ld)
+        run = _kernel
 
     local = run.ssd_chunk_states(kc, vc, ldc)               # pass 1: (B, H, NC, N, P)
     # Each chunk's decay, summed along contiguous rows (so that any grouping

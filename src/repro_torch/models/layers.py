@@ -1,7 +1,8 @@
-"""Shared transformer building blocks, forward only (twin of the JAX
-package's ``models/layers.py``): RMSNorm, RoPE, GQA attention (full /
-sliding / prefix-LM / bidirectional; teacher-forced and cached decode),
-and the FFN variants of the dense family.
+"""Shared transformer building blocks (twin of the JAX package's
+``models/layers.py``): RMSNorm with the reference's hand-written
+backward, RoPE, GQA attention (full / sliding / prefix-LM /
+bidirectional; teacher-forced and cached decode), and the FFN variants
+of the dense family.
 
 Parameters are nested dicts of tensors with the reference's paths (see
 ``models.params``). Compute runs in ``cfg.dtype``; the softmax and the
@@ -9,9 +10,12 @@ norms accumulate in float32. The ``.to(dt)`` casts mirror the
 reference's per-op ``astype``; on the model's compute copy of the
 weights (``Model.compute_params``) they are no-ops.
 
-Not here yet: the custom VJP of ``rmsnorm`` and the context-parallel
-form of ``_sdpa_chunked`` (ROADMAP.md queue 1, "LM training" and "Mesh and
-dry-run tools").
+Gradients take the plain paths: K5 has no backward (nor has the
+reference's Pallas kernel), so its gate is shut to activations that
+require grad, and its router raises if one reaches it.
+
+Not here yet: the context-parallel form of ``_sdpa_chunked`` (ROADMAP.md
+queue 1, "Mesh and dry-run tools").
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import params as pr
@@ -45,11 +50,41 @@ def rmsnorm_specs(d: int) -> Params:
 _RMS_EPS = 1e-6
 
 
-def rmsnorm(p: Params, x: torch.Tensor) -> torch.Tensor:
+def _rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + _RMS_EPS) * p["scale"].to(torch.float32)
+    y = xf * torch.rsqrt(var + _RMS_EPS) * scale.to(torch.float32)
     return y.to(x.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The reference's ``_rmsnorm_core`` with its custom VJP: the backward
+    keeps x in its own dtype (not a float32 copy) and recomputes the
+    float32 statistics from it."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, scale)
+        return _rmsnorm_fwd(x, scale)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, scale = ctx.saved_tensors
+        xf = x.to(torch.float32)
+        gf = g.to(torch.float32) * scale.to(torch.float32)
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        inv = torch.rsqrt(var + _RMS_EPS)
+        dot = torch.mean(gf * xf, dim=-1, keepdim=True)
+        dx = inv * (gf - xf * dot * inv * inv)
+        dscale = torch.sum((g.to(torch.float32) * xf * inv).reshape(-1, x.shape[-1]), dim=0)
+        return dx.to(x.dtype), dscale.to(scale.dtype).reshape(scale.shape)
+
+
+def rmsnorm(p: Params, x: torch.Tensor) -> torch.Tensor:
+    scale = p["scale"]
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNorm.apply(x, scale)
+    return _rmsnorm_fwd(x, scale)  # no graph to build: skip the Function's overhead
 
 
 # ---------------------------------------------------------------------------
@@ -114,11 +149,12 @@ def _project_qkv(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.T
 
 def _use_flash_kernel(cfg: ArchConfig, s: int, prefix_len: int, x: torch.Tensor) -> bool:
     """The reference's gate, with "the backend is a TPU" read as "the
-    activations are on a CUDA card": plain causal/bidirectional full
-    attention goes through K5 (kernels/flash_attention) when S is a
-    multiple of 512 and head_dim of 128; sliding / prefix-LM masks stay
-    on the plain paths."""
-    if x.device.type != "cuda":
+    activations are on a CUDA card and need no gradient": plain
+    causal/bidirectional full attention goes through K5
+    (kernels/flash_attention) when S is a multiple of 512 and head_dim of
+    128; sliding / prefix-LM masks, and activations that require grad (K5
+    has no backward), stay on the plain paths."""
+    if x.device.type != "cuda" or x.requires_grad:
         return False
     if cfg.attention == "sliding" or prefix_len > 0:
         return False
@@ -159,8 +195,10 @@ def _sdpa_chunked(q, k, v, cfg: ArchConfig, *, window, prefix_len,
                   q_chunk: int | None = None):
     """Attention over query chunks: O(S * chunk) live logits instead of
     O(S^2). Each chunk takes the same f32 softmax over all keys as
-    ``_sdpa`` (the reference's ``jax.checkpoint`` only matters for
-    gradients; its context-parallel form waits with the mesh)."""
+    ``_sdpa``; under grad each chunk is a non-reentrant checkpoint (the
+    reference's per-chunk ``jax.checkpoint``), so the backward recomputes
+    a chunk's scores instead of storing S^2 of them. The context-parallel
+    form waits with the mesh."""
     b, s, h, hd = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -169,26 +207,30 @@ def _sdpa_chunked(q, k, v, cfg: ArchConfig, *, window, prefix_len,
         q_chunk = max(128, min(1024, (1 << 22) // s))
     n_chunks = s // q_chunk
     qg = q.reshape(b, n_chunks, q_chunk, kv, g, hd)
-    outs = []
-    for ci in range(n_chunks):
+
+    def one_chunk(ci, qc, k, v):
         bias = _mask(cfg, q_chunk, s, ci * q_chunk, window=window,
                      prefix_len=prefix_len, device=q.device)
-        logits = torch.einsum("bqkgh,bskh->bkgqs", qg[:, ci], k).to(torch.float32)
+        logits = torch.einsum("bqkgh,bskh->bkgqs", qc, k).to(torch.float32)
         logits = logits / math.sqrt(hd) + bias
         w = torch.softmax(logits, dim=-1).to(q.dtype)
-        outs.append(torch.einsum("bkgqs,bskh->bqkgh", w, v))
+        return torch.einsum("bkgqs,bskh->bqkgh", w, v)
+
+    grad = torch.is_grad_enabled()
+    outs = [checkpoint(one_chunk, ci, qg[:, ci], k, v, use_reentrant=False) if grad
+            else one_chunk(ci, qg[:, ci], k, v) for ci in range(n_chunks)]
     return torch.stack(outs, dim=1).reshape(b, s, h, hd)
 
 
 def attn_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
                prefix_len: int = 0, chunked: bool = False,
                return_kv: bool = False):
-    """Teacher-forced full-sequence attention (prefill)."""
+    """Teacher-forced full-sequence attention (train / prefill)."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _project_qkv(cfg, p, x, positions)
     window = cfg.window if cfg.attention == "sliding" else None
-    if _use_flash_kernel(cfg, s, prefix_len, x):
+    if _use_flash_kernel(cfg, s, prefix_len, q):
         from repro_torch.kernels.flash_attention import ops as flash_ops
         out = flash_ops.flash_attention(q, k, v, causal=not cfg.is_encoder)
     elif chunked and s % 1024 == 0 and s > 1024:

@@ -1,5 +1,5 @@
-"""Model assembly, dense and hybrid families, forward only (twin of the
-JAX package's ``models/model.py``).
+"""Model assembly, dense and hybrid families (twin of the JAX package's
+``models/model.py``).
 
 ``build(cfg)`` returns a ``Model`` (an ``nn.Module``) whose parameters
 mirror the reference's tree path for path, so a state dict key is the
@@ -16,22 +16,37 @@ reference's path joined with ``.``: ``embed``, ``unembed``,
 
 Python loops over the layers take the place of ``lax.scan``.
 
-  * ``param_specs()`` / ``init(generator, device)`` / ``param_count()``
-  * ``forward(batch)``              -> (logits (B,S,V) f32, aux)
+  * ``param_specs()`` / ``param_shapes()`` / ``init(generator, device)``
+    / ``param_count()``
+  * ``master_params()`` / ``load_params(state)``: the float32 masters
+    out (a copy, nested in the reference's paths) and back in
+  * ``forward(batch)``              -> (logits (B,S,V) f32, aux)  (serving)
+  * ``apply(params, batch)``        -> (logits (B,S,V) f32, aux)  (train)
+  * ``loss(params, batch)``         -> (scalar, {"ce", "aux"})
   * ``prefill(batch, max_seq)``     -> (last_logits (B,1,V), cache)
   * ``decode_step(cache, batch)``   -> (logits (B,1,V), cache)
   * ``cache_shapes(batch, max_seq)`` / ``init_cache(batch, max_seq)``
 
 Parameters are stored float32, as in the reference. The reference casts
-each weight to the compute dtype at every use (``astype``); the port
-makes that cast once and keeps the copy (``compute_params``), which gives
-the same bits every step. The leaves the reference reads in float32 stay
-float32: the norm scales, and Mamba2's ``dt_bias`` and ``A_log``.
+each weight to the compute dtype at every use (``astype``). Serving makes
+that cast once and keeps the detached copy (``compute_params``), which
+gives the same bits every step. Training (``apply`` and ``loss``) takes
+an explicit tree of float32 masters, the reference's functional form, and
+casts it inside autograd on every call, so gradients reach the masters in
+float32. The leaves the reference reads in float32 stay float32 in both:
+the norm scales, and Mamba2's ``dt_bias`` and ``A_log``. With
+``cfg.remat`` each dense block, and each full hybrid group, is a
+non-reentrant ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` of its scan body).
+
+Under grad the kernels' gates are shut (``layers._use_flash_kernel``,
+``ssm._use_ssd_kernel``): K5 and K6 have no backward, nor have the
+reference's Pallas kernels, so training takes the plain paths.
 
 Not ported yet (each raises ``NotImplementedError``): the moe, ssm,
-audio and vlm families, the mesh fields (``act_axes``, ``seq_shard``,
-``context_parallel``, ``moe_wg``) and ``loss`` (ROADMAP.md queue 1: "The
-remaining LM families", "Mesh and dry-run tools", "LM training").
+audio and vlm families and the mesh fields (``act_axes``, ``seq_shard``,
+``context_parallel``, ``moe_wg``) (ROADMAP.md queue 1: "The remaining LM
+families", "Mesh and dry-run tools").
 """
 
 from __future__ import annotations
@@ -41,6 +56,7 @@ from typing import Any, NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -63,7 +79,8 @@ _WAITING = {
 
 
 class TensorSpec(NamedTuple):
-    """Shape and dtype of one cache leaf (the reference's ShapeDtypeStruct)."""
+    """Shape and dtype of one cache, parameter or optimizer leaf (the
+    reference's ShapeDtypeStruct)."""
     shape: tuple[int, ...]
     dtype: torch.dtype
 
@@ -76,10 +93,26 @@ def _stack_specs(specs: Params, n: int) -> Params:
     )
 
 
-def _unstack(tree: Params, n: int) -> list[Params]:
-    """The n trees of views along the leading stack axis."""
-    flat = pr.flatten(tree)
-    return [pr.unflatten((path, t[i]) for path, t in flat) for i in range(n)]
+def _unstack(tree: Params) -> list[Params]:
+    """The trees of views along the leading stack axis (``unbind``: under
+    grad its backward stacks the gradients once, where a select per layer
+    would each write a zero-filled gradient of the whole stack)."""
+    flat = [(path, t.unbind(0)) for path, t in pr.flatten(tree)]
+    return [pr.unflatten((path, ts[i]) for path, ts in flat) for i in range(len(flat[0][1]))]
+
+
+def _maybe_remat(fn, cfg: ArchConfig):
+    """``fn`` recomputed in the backward (non-reentrant checkpoint) when
+    ``cfg.remat`` and grad mode is on; else ``fn``."""
+    if not cfg.remat:
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return run
 
 
 def _auto_chunked(chunked: bool | None, s: int) -> bool:
@@ -161,12 +194,29 @@ class Model(nn.Module):
         self._set_params(pr.init_params(self.param_specs(), generator, dev))
         return self
 
-    def load_params(self, state: dict[str, torch.Tensor],
+    def param_shapes(self) -> Params:
+        """TensorSpec tree of the float32 masters (the reference's
+        ``shape_tree``)."""
+        return pr.unflatten((path, TensorSpec(s.shape, torch.float32))
+                            for path, s in pr.flatten(self.param_specs()))
+
+    def master_params(self) -> Params:
+        """A copy of the float32 masters, nested in the reference's paths:
+        the tree ``apply``, ``loss`` and the trainer take. Training it
+        leaves the module as it is; ``load_params`` takes it back."""
+        self._require_params()
+        return pr.unflatten((tuple(name.split(".")), t.detach().clone())
+                            for name, t in self.named_parameters())
+
+    def load_params(self, state: dict[str, Any],
                     device: torch.device | str | None = None) -> Model:
         """Take a state dict keyed by the reference's dotted paths (see
-        ``convert.lm_params_from_jax``) as float32 on ``device`` (the card
-        by default)."""
+        ``convert.lm_params_from_jax``), or a tree nested in those paths
+        (``master_params``, a ``TrainState``'s params), as float32 copies
+        on ``device`` (the card by default)."""
         dev = resolve_device(device)
+        if any(isinstance(v, dict) for v in state.values()):
+            state = {".".join(path): t for path, t in pr.flatten(state)}
         want = {".".join(path): s.shape for path, s in pr.flatten(self.param_specs())}
         if set(state) != set(want):
             raise KeyError(f"parameter paths differ: missing {sorted(set(want) - set(state))}, "
@@ -175,7 +225,8 @@ class Model(nn.Module):
             if tuple(value.shape) != want[key]:
                 raise ValueError(f"{key}: shape {tuple(value.shape)}, expected {want[key]}")
         self._set_params(pr.unflatten(
-            (tuple(key.split(".")), value.to(device=dev, dtype=torch.float32))
+            (tuple(key.split(".")),
+             value.detach().to(device=dev, dtype=torch.float32, copy=True))
             for key, value in state.items()
         ))
         return self
@@ -204,25 +255,31 @@ class Model(nn.Module):
         that follow it (n_full lists of attn_every, then the remainder's
         rem; the shared attention block is ``params["shared_attn"]``)."""
         if self._compute is None:
-            if self.device.type == "meta":
-                raise RuntimeError("Model parameters are not initialized: call init() "
-                                   "or load_params() first")
-            dt = ly.cdtype(self.cfg)
-            pairs = []
-            for name, t in self.named_parameters():
-                path = tuple(name.split("."))
-                keep = path[-1] in _FLOAT32_LEAVES
-                pairs.append((path, t.detach() if keep else t.detach().to(dt)))
-            tree = pr.unflatten(pairs)
-            if self.cfg.family == "dense":
-                layers = _unstack(tree["blocks"], self.cfg.n_layers)
-            else:
-                n_full, rem, per = self._hybrid_shape()
-                layers = [_unstack(g, per) for g in _unstack(tree["mamba_groups"], n_full)]
-                if rem:
-                    layers.append(_unstack(tree["mamba_rest"], rem))
-            self._compute = (tree, layers)
+            self._require_params()
+            self._compute = self._to_compute(
+                (tuple(name.split(".")), t.detach()) for name, t in self.named_parameters())
         return self._compute
+
+    def _require_params(self) -> None:
+        if self.device.type == "meta":
+            raise RuntimeError("Model parameters are not initialized: call init() "
+                               "or load_params() first")
+
+    def _to_compute(self, pairs) -> tuple[Params, Any]:
+        """(top-level params, per-layer params) from (path, float32 master)
+        pairs: each leaf cast to ``cdtype`` (the float32 leaves kept), then
+        the stacks unbound into the per-layer trees ``compute_params``
+        describes. Under grad the casts and views are part of the graph."""
+        dt = ly.cdtype(self.cfg)
+        tree = pr.unflatten((path, t if path[-1] in _FLOAT32_LEAVES else t.to(dt))
+                            for path, t in pairs)
+        if self.cfg.family == "dense":
+            layers = _unstack(tree["blocks"])
+        else:
+            layers = [_unstack(g) for g in _unstack(tree["mamba_groups"])]
+            if "mamba_rest" in tree:
+                layers.append(_unstack(tree["mamba_rest"]))
+        return tree, layers
 
     # --- embedding -----------------------------------------------------------
     def _embed_in(self, params: Params, batch: Params) -> torch.Tensor:
@@ -238,27 +295,41 @@ class Model(nn.Module):
                   chunked: bool, collect: bool):
         """x: (B,S,d) embedded input. Returns (x, aux, raw cache or None):
         dense, the per-layer [(k, v)]; hybrid, per attention site ((k, v),
-        [the Mamba2 caches of the blocks that follow it])."""
+        [the Mamba2 caches of the blocks that follow it]). Under grad with
+        ``cfg.remat`` each dense block and each full hybrid group is
+        recomputed in the backward (the remainder group is not, as in the
+        reference)."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family == "dense":
-            kvs = [] if collect else None
-            for bp in layers:
-                x, kv = ly.block_apply(cfg, bp, x, chunked=chunked, return_kv=True)
-                if collect:
-                    kvs.append(kv)
-            return x, aux, kvs
+            def block(h, bp):
+                out = ly.block_apply(cfg, bp, h, chunked=chunked, return_kv=collect)
+                return out if collect else (out, None)
 
-        raw = []
-        for group in layers:
-            x, kv = ly.block_apply(cfg, params["shared_attn"], x, chunked=chunked,
-                                   return_kv=True)
+            kvs = []
+            step = _maybe_remat(block, cfg)
+            for bp in layers:
+                x, kv = step(x, bp)
+                kvs.append(kv)
+            return x, aux, (kvs if collect else None)
+
+        def group(h, mamba):
+            out = ly.block_apply(cfg, params["shared_attn"], h, chunked=chunked,
+                                 return_kv=collect)
+            h, kv = out if collect else (out, None)
             mcs = []
-            for mp in group:
-                x, mc = ssm_mod.mamba2_apply(cfg, mp, x, return_cache=True)
+            for mp in mamba:
+                out = ssm_mod.mamba2_apply(cfg, mp, h, return_cache=collect)
+                h, mc = out if collect else (out, None)
                 mcs.append(mc)
-            if collect:
-                raw.append((kv, mcs))
+            return h, (kv, mcs)
+
+        n_full = self._hybrid_shape()[0]
+        full_group = _maybe_remat(group, cfg)
+        raw = []
+        for j, mamba in enumerate(layers):
+            x, site = (full_group if j < n_full else group)(x, mamba)
+            raw.append(site)
         return x, aux, (raw if collect else None)
 
     # --- forward -----------------------------------------------------------------
@@ -272,9 +343,33 @@ class Model(nn.Module):
         x, aux, _ = self._backbone(params, layers, x, chunked=chunked, collect=False)
         return self._unembed(params, x), aux
 
-    def loss(self, batch: Params):
-        raise NotImplementedError(
-            'Model.loss waits for LM training (ROADMAP.md queue 1, "LM training")')
+    # --- training: an explicit float32 master tree, cast inside autograd ------
+    def apply(self, params: Params, batch: Params, *, chunked_attn: bool | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The reference's ``forward(params, batch)``: (logits (B,S,V) f32,
+        aux loss scalar) from the float32 masters ``params`` (nested in the
+        reference's paths); gradients reach them through the casts."""
+        tree, layers = self._to_compute(pr.flatten(params))
+        x = self._embed_in(tree, batch)
+        chunked = _auto_chunked(chunked_attn, x.shape[1])
+        x, aux, _ = self._backbone(tree, layers, x, chunked=chunked, collect=False)
+        return self._unembed(tree, x), aux
+
+    def loss(self, params: Params, batch: Params) -> tuple[torch.Tensor, Params]:
+        """(total, {"ce", "aux"}): the mean next-token cross-entropy from a
+        float32 log-softmax (over ``batch["mask"]``'s positions when given,
+        divided by max(sum(mask), 1)) plus ``router_aux_weight * aux``."""
+        cfg = self.cfg
+        logits, aux = self.apply(params, batch)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, batch["targets"].long()[..., None])[..., 0]
+        mask = batch.get("mask")
+        if mask is not None:
+            ce = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        else:
+            ce = torch.mean(nll)
+        total = ce + cfg.router_aux_weight * aux
+        return total, {"ce": ce, "aux": aux}
 
     # --- caches -----------------------------------------------------------------
     def cache_shapes(self, batch: int, max_seq: int) -> Params:

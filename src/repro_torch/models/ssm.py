@@ -1,5 +1,4 @@
-"""Mamba2 block (SSD), forward only (twin of the JAX package's
-``models/ssm.py``).
+"""Mamba2 block (SSD) (twin of the JAX package's ``models/ssm.py``).
 
 Structure follows arXiv:2405.21060 (single B/C group):
 
@@ -75,9 +74,12 @@ def _conv_full(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
 
 def _use_ssd_kernel(x: torch.Tensor, initial_state, s: int, chunk: int) -> bool:
     """The reference's gate, with "the backend is a TPU" read as "the
-    activations are on a CUDA card": with no initial state and S a
-    multiple of the chunk, the chunk step runs as K6 (kernels/ssd)."""
-    return x.device.type == "cuda" and initial_state is None and s % chunk == 0
+    activations are on a CUDA card and need no gradient": with no initial
+    state and S a multiple of the chunk, the chunk step runs as K6
+    (kernels/ssd). K6 has no backward (nor has the reference's Pallas
+    kernel), so activations that require grad take ``scan_core``."""
+    return (x.device.type == "cuda" and not x.requires_grad and initial_state is None
+            and s % chunk == 0)
 
 
 def _ssm_inner(cfg: ArchConfig, p: Params, x, bmat, cmat, dt_raw, *, initial_state=None):

@@ -400,9 +400,12 @@ def test_ssd_gate_follows_the_reference():
     x = torch.zeros(1)
     assert not ssm._use_ssd_kernel(x, None, 512, 256)  # a CPU tensor: the plain core
     meta = torch.empty(1, device="meta")
-    # The gate reads the device type only; "cuda" is what passes it.
-    cuda_like = type("T", (), {"device": torch.device("cuda")})()
+    # The gate reads the device type and requires_grad; "cuda" with no
+    # gradient is what passes it.
+    cuda_like = type("T", (), {"device": torch.device("cuda"), "requires_grad": False})()
     assert ssm._use_ssd_kernel(cuda_like, None, 512, 256)
+    needs_grad = type("T", (), {"device": torch.device("cuda"), "requires_grad": True})()
+    assert not ssm._use_ssd_kernel(needs_grad, None, 512, 256)  # K6 has no backward
     assert ssm._use_ssd_kernel(cuda_like, None, 77, 77)
     assert not ssm._use_ssd_kernel(cuda_like, None, 300, 256)  # ragged: scan_core pads
     assert not ssm._use_ssd_kernel(cuda_like, meta, 512, 256)  # an initial state

@@ -431,7 +431,5 @@ def test_unported_parts_raise():
             build(get_config(arch).reduced())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build(get_config("qwen3-0.6b").reduced(), seq_shard=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(get_config("qwen3-0.6b").reduced()).loss({})
     assert for_shape(get_config("qwen3-0.6b"), "long_500k").attention == "sliding"
     assert for_shape(get_config("qwen3-0.6b"), "decode_32k").attention == "full"
