@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of the seizure-scoring, training (emulated
-and over torch.distributed), dense LM serving, LM training and hybrid LM
-serving paths on one CUDA card.
+and over torch.distributed), dense LM serving, LM training, the moe,
+xLSTM, vlm and audio LM families and hybrid LM serving paths on one CUDA
+card.
 
 Run from the root of a checkout, with no arguments:
 
@@ -184,6 +185,34 @@ Phases (any failure exits non-zero):
      Mamba2 blocks; all 81 blocks' state would take ~108 GB): one bf16
      train step, its gradients against a float32-compute step's as in
      (2), and K6 (and K5) launching 0 times.
+  7c. The remaining LM families at their published widths (random
+     weights from seeded generators, bf16 compute). First K5 against its
+     plain version at qwen3-moe-30b-a3b's prefill, q (8, 2048, 32, 128)
+     over k, v (8, 2048, 4, 128) causal bf16 (GQA group 8), and at the
+     batch-1 admission prefills of its continuous run (S = 512, 1024,
+     1536), within FLASH_TOL; each family's reduced float32 config on the
+     card against the CPU within FAMILY_REF_TOL. qwen3-moe-30b-a3b (128
+     experts, top-8, capacity factor 1.25) cut to MOE_LAYERS = 8 of 48
+     layers (5.60 B parameters): the top-k tie rule and the dispatch of
+     the prefill's choices on the card equal the CPU's; a static batch as
+     phase 7's (16 new tokens; K5 once per layer of the prefill), then
+     continuous batching, 8 requests over 4 slots (K5 per 512-multiple
+     prompt), each again through K5's plain version with the routes pinned
+     to the kernel run's expert choices (MOE_* comment): the share of
+     token-choices the plain path's own top-k would route elsewhere, per
+     layer, and the logits and tokens held by phase 7's rules; profiles
+     of one prefill and one decode step. One AdamW train step at MOE_TRAIN_LAYERS = 2
+     layers on 2 x 2048 (no K5 launch, aux finite and > 0) and phase 7b's
+     check (2) with the float32 model pinned to the bf16 model's routes.
+     xlstm-1.3b as published (42 mLSTM + 6 sLSTM blocks): a static batch of
+     8 prompts of 2048 (16 new tokens; the prefill's time in each kind of
+     block) and continuous batching, 8 requests over 4 slots. paligemma-3b
+     as published: ``Model.prefill`` of 8 x (256 patches + 256 tokens)
+     and 16 decode steps. hubert-xlarge as published: ``Model.loss``'s
+     forward on 8 x 2048 frames with the synthetic mask, and its
+     decode_step raising. Each prints prefill (or loss) ms, decode ms a
+     step, tokens (or frames)/s, peak memory and the card; no kernel
+     launches on the xLSTM, vlm or audio paths.
   8. Hybrid LM serving at the full width and depth of zamba2-7b (81 Mamba2
      blocks behind 14 sites of one shared attention block, 6.75 B
      parameters drawn from a seeded generator, bf16 compute). K6 against
@@ -214,7 +243,8 @@ Phases (any failure exits non-zero):
      prefill copies no tensor of B H S N elements with a head axis.
   9. A ``kernels`` JSON line (K1-K6; launches summed over the counted
      runs of phases 3, 4b, 6, 6c (every rank's mesh fit), 6d (every
-     rank's engine runs), 7, 7b (its serving forwards) and 8), the
+     rank's engine runs), 7, 7b (its serving forwards), 7c (the moe
+     engine runs) and 8), the
      script's seconds, the card line,
      and the last line ``{"ok": true, "device": {...}}``.
 """
@@ -324,6 +354,53 @@ TRAIN_GRAD_REL = 2.0**-4
 # ulp, each leaf's clipped gradient and update within 2^-5 of its scale
 # (Frobenius).
 TRAIN_MICRO_REL = 2.0**-5
+# Phase 7c: the remaining LM families at their published widths (random
+# weights). qwen3-moe-30b-a3b (128 experts, top-8) cut to 8 of its 48
+# layers: 5.60 B parameters, 33.6 GB as float32 masters and the bf16 copy
+# (the whole model would take 183 GB).
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_LAYERS = 8
+MOE_MAX_NEW = 16
+MOE_CONT_MAX_SEQ = 2048
+MOE_CONT_LENS = (512, 1024, 700, 1536, 512, 333, 1024, 900)  # 5 reach K5 (S % 512 == 0)
+MOE_CONT_MAX_NEW = (8, 12, 6, 10, 5, 9, 7, 11)
+MOE_TRAIN_LAYERS = 2
+# Kernel path against plain path: phase 7's rules (LM_LOGIT_TOL, LM_MARGIN)
+# on every step, with the routes pinned. The router sits between the paths:
+# two bf16 attention roundings move a token's router logits by a few bf16
+# ulps, and where two of its 128 probabilities lie within that of each other
+# across the top-8 boundary (equal bf16 router logits are common), the two
+# paths would route the token to different experts, and a different expert
+# set (or, through the capacity, a different set of dropped choices) changes
+# its MoE output by O(1), not by rounding. So each plain run takes the
+# kernel run's expert choices (its weights renormalized from its own
+# probabilities, ``moe_routes(replay=)``), and the two paths differ by K5's
+# rounding alone. The share of token-choices that the plain path's own top-k
+# would have sent to another expert is printed per layer. K5 itself is held
+# element by element at every shape the moe runs give it (``flash_row``):
+# (8, 2048) and the batch-1 admission widths of MOE_CONT_LENS that open its
+# gate, all at 32:4 heads (a GQA group of 8).
+# (2) of phase 7b on 2 layers, with the routes pinned the same way: the
+# float32-compute model takes the bf16 model's expert choices, as otherwise
+# the same route flips make the two gradients differ by which tokens each
+# expert saw, not by rounding.
+XL_ARCH = "xlstm-1.3b"
+XL_SLOTS = 8
+XL_MAX_SEQ = 4096
+XL_MAX_NEW = 16
+XL_STATIC_LEN = 2048
+XL_CONT_SLOTS = 4
+XL_CONT_MAX_SEQ = 1024
+XL_CONT_LENS = (256, 128, 512, 96, 384, 200, 64, 300)
+XL_CONT_MAX_NEW = (8, 12, 6, 10, 5, 9, 7, 11)
+VLM_ARCH = "paligemma-3b"
+VLM_BATCH, VLM_TEXT, VLM_STEPS = 8, 256, 16
+AUDIO_ARCH = "hubert-xlarge"
+AUDIO_BATCH, AUDIO_FRAMES = 8, 2048
+# Each family's reduced float32 config on the card against the same on
+# the CPU (TF32 is off): logits within 1e-4 absolute and relative, as the
+# CPU tests hold the port to the reference.
+FAMILY_REF_TOL = 1e-4
 # Phase 8: hybrid serving at the full width of zamba2-7b (random weights).
 HY_ARCH = "zamba2-7b"
 HY_SLOTS = 8
@@ -2659,16 +2736,40 @@ def compare_paths(label, kernel, plain, tol=LM_LOGIT_TOL, margin=LM_MARGIN
     return diff, n_logits, n_tokens, total
 
 
+def trace_call(label: str, what: str, fn, name: str, ours: str | None = None,
+               copies: list | None = None) -> None:
+    """Device busy and idle share, and device time by kernel, of one
+    ``fn()`` (``device_activity``, the trace in ``chiprun_out/<name>``);
+    with ``ours`` (a substring of a kernel's name), that kernel's share of
+    the device time too, beside the time of the copies (memcpy activities
+    and copy kernels). ``copies`` goes to ``device_activity``."""
+    wall_ms, busy_ms, by_name = device_activity(fn, name, copies)
+    if busy_ms is None:
+        print(f"{label} trace {what}: {wall_ms:.3f} ms wall; the profiler recorded no "
+              "device activity: busy and idle share not measured")
+        return
+    print(f"{label} trace {what}: {wall_ms:.3f} ms wall (profiler on), device busy "
+          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}, "
+          f"{sum(n for _, n in by_name.values())} device activities")
+    for kname, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"{label} trace kernel: {ms:.3f} ms in {n} launches: {kname[:110]}")
+    if ours is not None:
+        mine = [(ms, n) for kname, (ms, n) in by_name.items() if ours in kname]
+        ms, n = sum(m for m, _ in mine), sum(c for _, c in mine)
+        copy = [(ms, n) for kname, (ms, n) in by_name.items()
+                if "copy" in kname.lower() or "memcpy" in kname.lower()]
+        c_ms, c_n = sum(m for m, _ in copy), sum(c for _, c in copy)
+        print(f"{label} trace {what}: {ours} {ms:.3f} ms in {n} launches, "
+              f"{ms / busy_ms:.4f} of the device's busy time; copies {c_ms:.3f} ms in "
+              f"{c_n} activities, {c_ms / busy_ms:.4f}")
+
+
 def lm_traces(model, tokens, max_seq=LM_MAX_SEQ, label="lm", ours=None,
               heads: tuple[int, int] | None = None) -> None:
-    """Device busy and idle share, and device time by kernel, of one
-    static prefill and of one decode step at the batch of ``tokens``; with
-    ``ours`` (a substring of a kernel's name), that kernel's share of each
-    trace's device time too, beside the time of the copies (memcpy
-    activities and copy kernels). With ``heads`` = (H, N), the prefill's
-    copies of tensors of B H S N elements that have an H or B H axis (B or
-    C expanded per head, or v transposed per head) are counted: there must
-    be none."""
+    """``trace_call`` of one static prefill and of one decode step at the
+    batch of ``tokens``. With ``heads`` = (H, N), the prefill's copies of
+    tensors of B H S N elements that have an H or B H axis (B or C expanded
+    per head, or v transposed per head) are counted: there must be none."""
     import torch
 
     _, cache = model.prefill({"tokens": tokens}, max_seq)
@@ -2680,7 +2781,7 @@ def lm_traces(model, tokens, max_seq=LM_MAX_SEQ, label="lm", ours=None,
          lambda: model.decode_step(cache, step), f"{label}_decode_trace"),
     ):
         shapes = [] if heads is not None and "prefill" in name else None
-        wall_ms, busy_ms, by_name = device_activity(fn, name, shapes)
+        trace_call(label, what, fn, name, ours, shapes)
         if shapes is not None:
             b, s = tokens.shape
             h, n = heads
@@ -2691,24 +2792,6 @@ def lm_traces(model, tokens, max_seq=LM_MAX_SEQ, label="lm", ours=None,
                   f"{sorted(set(per_head))}")
             if per_head:
                 fail(f"{label} prefill copies B, C or v per head: {sorted(set(per_head))}")
-        if busy_ms is None:
-            print(f"{label} trace {what}: {wall_ms:.3f} ms wall; the profiler recorded no "
-                  "device activity: busy and idle share not measured")
-            continue
-        print(f"{label} trace {what}: {wall_ms:.3f} ms wall (profiler on), device busy "
-              f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}, "
-              f"{sum(n for _, n in by_name.values())} device activities")
-        for kname, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
-            print(f"{label} trace kernel: {ms:.3f} ms in {n} launches: {kname[:110]}")
-        if ours is not None:
-            mine = [(ms, n) for kname, (ms, n) in by_name.items() if ours in kname]
-            ms, n = sum(m for m, _ in mine), sum(c for _, c in mine)
-            copies = [(ms, n) for kname, (ms, n) in by_name.items()
-                      if "copy" in kname.lower() or "memcpy" in kname.lower()]
-            c_ms, c_n = sum(m for m, _ in copies), sum(c for _, c in copies)
-            print(f"{label} trace {what}: {ours} {ms:.3f} ms in {n} launches, "
-                  f"{ms / busy_ms:.4f} of the device's busy time; copies {c_ms:.3f} ms in "
-                  f"{c_n} activities, {c_ms / busy_ms:.4f}")
 
 
 def lm_phase(gen) -> tuple[dict, int]:
@@ -3124,6 +3207,567 @@ def lm_training_phase(smi: str) -> int:
     torch.cuda.empty_cache()
     print(f"phase 7b (LM training): {time.perf_counter() - t_phase:.1f} s")
     return k5_serve + k5_handoff
+
+
+# ---------------------------------------------------------------------------
+# Phase 7c: the remaining LM families (qwen3-moe through K5, xLSTM, vlm, audio)
+# ---------------------------------------------------------------------------
+
+def family_cfgs() -> dict:
+    """qwen3-moe-30b-a3b cut to MOE_LAYERS (serving) and MOE_TRAIN_LAYERS
+    (training), and xlstm-1.3b, paligemma-3b and hubert-xlarge as
+    published."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    moe = get_config(MOE_ARCH)
+    return {"moe": dataclasses.replace(moe, n_layers=MOE_LAYERS),
+            "moe_train": dataclasses.replace(moe, n_layers=MOE_TRAIN_LAYERS),
+            "xlstm": get_config(XL_ARCH), "vlm": get_config(VLM_ARCH),
+            "audio": get_config(AUDIO_ARCH)}
+
+
+def k5_gate_open(cfg, s: int, device) -> bool:
+    """Whether the model's own gate sends an attention of width ``s`` on
+    ``device`` to K5 (no prefix, no grad)."""
+    import torch
+
+    from repro_torch.models import layers as ly
+
+    return ly._use_flash_kernel(cfg, s, 0, torch.empty(0, device=device))
+
+
+@contextlib.contextmanager
+def moe_routes(replay: list | None = None):
+    """Record the expert choices (B, S, k) of every ``moe.route`` call's own
+    top-k, in call order. With ``replay`` (an earlier recording of the same
+    calls), each call goes on with the recorded choices instead of its own,
+    their weights renormalized from this call's probabilities; the
+    recording still holds the call's own choices."""
+    import torch
+
+    from repro_torch.models import moe
+
+    route, rec = moe.route, []
+
+    def recorded(cfg, p, x):
+        probs, w, idx = route(cfg, p, x)
+        rec.append(idx.detach())
+        if replay is not None:
+            if len(rec) > len(replay) or replay[len(rec) - 1].shape != idx.shape:
+                fail(f"moe route call {len(rec)} of {tuple(idx.shape)} has no recorded "
+                     f"choices of that shape to replay")
+            idx = replay[len(rec) - 1]
+            w = torch.gather(probs, -1, idx)
+            w = w / torch.sum(w, dim=-1, keepdim=True)
+        return probs, w, idx
+
+    moe.route = recorded
+    try:
+        yield rec
+    finally:
+        moe.route = route
+    if replay is not None and len(rec) != len(replay):
+        fail(f"{len(rec)} moe route calls replayed a recording of {len(replay)}")
+
+
+def route_shares(got: list, want: list) -> list:
+    """Two recordings of the same calls: per call, each token's (B, S)
+    share of choices whose expert is not among the other's choices of that
+    token."""
+    return [(~(a[..., :, None] == b[..., None, :]).any(-1)).float().mean(-1)
+            for a, b in zip(got, want)]
+
+
+def prefill_shares(moved: list, n_layers: int) -> list[float]:
+    """``route_shares`` of an engine run (``n_layers`` route calls per
+    model call) averaged per layer over every position of its prefill calls
+    (S > 1), whose contexts are the same on both paths."""
+    out = []
+    for layer in range(n_layers):
+        picked = [m for m in moved[layer::n_layers] if m.shape[1] > 1]
+        out.append(round(float(sum(m.sum() for m in picked)) / sum(m.numel() for m in picked), 5))
+    return out
+
+
+def family_reference_checks() -> None:
+    """Each family's reduced float32 config on the card against the same
+    parameters and batch on the CPU: forward logits (and, but for the
+    encoder, a prefill and two decode steps) within FAMILY_REF_TOL."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models import build
+    from repro_torch.serving.engine import greedy
+
+    def worst(got, want) -> float:
+        want = want.float()
+        return float(((got.float().cpu() - want).abs() / (1 + want.abs())).max())
+
+    for arch in (MOE_ARCH, XL_ARCH, VLM_ARCH, AUDIO_ARCH):
+        cfg = get_config(arch).reduced()
+        cpu = build(cfg).init(torch.Generator().manual_seed(SEED), device="cpu")
+        card = build(cfg).load_params(cpu.master_params(), device="cuda")
+        batch = make_batch(cfg, InputShape("ref", 64, 2, "prefill"),
+                           torch.Generator().manual_seed(SEED))
+        on_card = {k: v.to("cuda") for k, v in batch.items()}
+        errs = [worst(card.forward(on_card)[0], cpu.forward(batch)[0])]
+        if not cfg.is_encoder:
+            want, wcache = cpu.prefill(batch, 80)
+            got, gcache = card.prefill(on_card, 80)
+            errs.append(worst(got, want))
+            for _ in range(2):
+                tok = greedy(want)
+                want, wcache = cpu.decode_step(wcache, {"tokens": tok})
+                got, gcache = card.decode_step(gcache, {"tokens": tok.to("cuda")})
+                errs.append(worst(got, want))
+        print(f"family reference {cfg.name}: card against CPU, float32, "
+              f"{len(errs)} logits tensors: worst |card - cpu| / (1 + |cpu|) {max(errs):.3e} "
+              f"(tol {FAMILY_REF_TOL})")
+        if not max(errs) <= FAMILY_REF_TOL:
+            fail(f"{cfg.name}: the card's logits differ from the CPU's by {max(errs)}")
+
+
+def check_moe_dispatch(cfg, idx) -> None:
+    """On the card: the top-k tie rule on constructed exact ties, and the
+    dispatch of the static prefill's first-layer choices ``idx`` (B, S, k)
+    against the same on the CPU, exactly."""
+    import torch
+
+    from repro_torch.models import moe
+
+    probs = torch.tensor([[0.1, 0.3, 0.3, 0.2, 0.3, 0.05]])
+    ties = torch.randint(0, 8, (8, 64, cfg.n_experts), generator=torch.Generator()
+                         .manual_seed(SEED)).float() / 8
+    got = [moe.top_k(probs.to("cuda"), 2)[1], moe.top_k(ties.to("cuda"), cfg.experts_per_token)[1]]
+    if got[0].tolist() != [[1, 2]] or not torch.equal(
+            got[1].cpu(), moe.top_k(ties, cfg.experts_per_token)[1]):
+        fail(f"top-k on the card breaks ties otherwise than the reference: {got[0].tolist()}")
+    cap = moe.capacity(cfg, idx.shape[1])
+    on_card = moe._dispatch_indices(idx, cfg.n_experts, cap)
+    on_cpu = moe._dispatch_indices(idx.cpu(), cfg.n_experts, cap)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu)):
+        fail("the dispatch indices on the card differ from the CPU's")
+    dropped = 1 - float(on_cpu[3].float().mean())
+    print(f"moe dispatch: top-k ties to the lower expert on the card; the static prefill's "
+          f"layer-0 choices {tuple(idx.shape)} dispatch identically on the card and the CPU "
+          f"(capacity {cap}, {dropped:.4f} of the token-choices dropped)")
+
+
+def moe_serving(cfg, smi: str) -> int:
+    """qwen3-moe at MOE_LAYERS layers: a static batch, then continuous
+    batching, each through K5 and then through its plain version with the
+    routes pinned to the kernel run's (see MOE_*). Returns K5's launches in
+    the two runs through the kernels."""
+    import torch
+
+    from repro_torch.models import build
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build(cfg).init(torch.Generator(device="cuda").manual_seed(SEED + 9), device="cuda")
+    model.compute_params()
+    torch.cuda.synchronize()
+    n_layers = cfg.n_layers
+    print(f"moe model: {cfg.name} cut to {n_layers} of 48 layers, "
+          f"{model.param_count() / 1e9:.3f} B parameters (float32 master + bf16 compute copy), "
+          f"{cfg.n_experts} experts, top-{cfg.experts_per_token}, d_ff {cfg.d_ff}, capacity "
+          f"factor {cfg.capacity_factor}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, vocab {cfg.vocab_size}; drawn in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 9)
+    static_prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+                      for n in LM_STATIC_LENS]
+    cont_prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+                    for n in MOE_CONT_LENS]
+
+    lm_static(model, static_prompts[:2], max_new=2)  # warm-up
+    reset_counts()
+    with moe_routes() as k_routes:
+        toks, calls, seconds = lm_static(model, static_prompts, max_new=MOE_MAX_NEW)
+    k5_static = launch_counts()["flash_attention"]
+    want_k5 = n_layers * k5_gate_open(cfg, max(LM_STATIC_LENS), model.device)
+    dec = [c["seconds"] for c in calls["decode"]]
+    n_tok = sum(len(t) for t in toks)
+    print(f"moe static: {LM_SLOTS} slots, prompts {LM_STATIC_LENS} (padded width "
+          f"{max(LM_STATIC_LENS)}), max_seq {LM_MAX_SEQ}, {MOE_MAX_NEW} new tokens each: "
+          f"prefill {calls['prefill'][0]['seconds'] * 1e3:.3f} ms, decode "
+          f"{statistics.median(dec) * 1e3:.3f} ms per step (median of {len(dec)}), {n_tok} "
+          f"tokens in {seconds:.3f} s = {n_tok / seconds:.1f} generated tokens/s "
+          f"({LM_SLOTS / statistics.median(dec):.1f} tokens/s in decode); K5 launches "
+          f"{k5_static}; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; largest "
+          f"|logit| of the prefill {float(calls['prefill'][0]['logits'].abs().max()):.3f}; "
+          f"card {smi}")
+    if k5_static != want_k5:
+        fail(f"K5 launched {k5_static} times in the moe static run, expected {want_k5}")
+    for row in calls["prefill"][0]["logits"], *(c["logits"] for c in calls["decode"]):
+        if not bool(torch.isfinite(row).all()):
+            fail("non-finite logits in the moe static run")
+    check_moe_dispatch(cfg, k_routes[0])
+
+    reset_counts()
+    with plain_versions(), moe_routes(replay=k_routes) as p_routes:
+        _, p_calls, p_seconds = lm_static(model, static_prompts, max_new=MOE_MAX_NEW)
+    if any(launch_counts().values()):
+        fail("a kernel launched during the plain moe run")
+    moved = route_shares(p_routes, k_routes)
+    del k_routes, p_routes
+    n = len(static_prompts)
+    kernel = static_steps(calls, n, MOE_MAX_NEW)
+    plain = static_steps(p_calls, n, MOE_MAX_NEW)
+    # Decode call t - 1 serves step t, whose context is the same on both
+    # paths iff tokens 0 .. t - 1 are.
+    same_ctx = [(r, t) for r in range(n) for t in range(1, MOE_MAX_NEW)
+                if all(kernel[r][u][0] == plain[r][u][0] for u in range(t))]
+    dec = [statistics.mean(float(moved[t * n_layers + layer][r, -1]) for r, t in same_ctx)
+           if same_ctx else float("nan") for layer in range(n_layers)]
+    print(f"moe routes, the plain path's own top-k against the K5 path's choices (which it "
+          f"runs with): share of token-choices it would route to another expert per layer, "
+          f"prefill (all {n} x {max(LM_STATIC_LENS)} positions) "
+          f"{prefill_shares(moved, n_layers)}, decode (the {len(same_ctx)} steps whose "
+          f"context is the same) {[round(x, 5) for x in dec]}")
+    diff, n_logits, n_tokens, total = compare_paths("moe static", kernel, plain)
+    print(f"moe static plain path (routes pinned): prefill "
+          f"{p_calls['prefill'][0]['seconds'] * 1e3:.3f} ms, {n_tok / p_seconds:.1f} generated "
+          f"tokens/s; logits on the same context differ by at most {diff:.4e} (tol "
+          f"{LM_LOGIT_TOL}) over {n_logits} of {total} steps; tokens equal on {n_tokens} of "
+          f"{total} steps (each request up to its first plain margin < {LM_MARGIN})")
+    del kernel, plain, calls, p_calls, moved
+
+    sched, admissions = continuous_schedule(MOE_CONT_MAX_NEW, LM_CONT_SLOTS)
+    reset_counts()
+    with moe_routes() as k_routes:
+        reqs, ccalls, cseconds = lm_continuous(model, cont_prompts, max_seq=MOE_CONT_MAX_SEQ,
+                                               max_new=MOE_CONT_MAX_NEW)
+    k5_cont = launch_counts()["flash_attention"]
+    want_k5 = n_layers * sum(k5_gate_open(cfg, n, model.device) for n in MOE_CONT_LENS)
+    mid = sum(step >= 0 for step, _, _ in admissions)
+    if not all(r.done and len(r.out) == m for r, m in zip(reqs, MOE_CONT_MAX_NEW)):
+        fail(f"moe continuous: not every request completed: {[len(r.out) for r in reqs]}")
+    if k5_cont != want_k5 or len(ccalls["decode"]) != len(sched) or mid == 0:
+        fail(f"moe continuous: K5 {k5_cont} launches (expected {want_k5}), "
+             f"{len(ccalls['decode'])} decode steps (schedule {len(sched)}), {mid} mid-stream "
+             "admissions")
+    kernel = continuous_steps(ccalls, sched, admissions, len(reqs), MOE_CONT_MAX_NEW)
+    if [[st[0] for st in r] for r in kernel] != [r.out for r in reqs]:
+        fail("moe continuous: the recorded calls do not replay the requests' tokens")
+    if not all(bool(torch.isfinite(c["logits"]).all()) for c in ccalls["decode"]):
+        fail("non-finite logits in the moe continuous run")
+    n_tok = sum(len(r.out) for r in reqs)
+    print(f"moe continuous: {len(reqs)} requests over {LM_CONT_SLOTS} slots, prompts "
+          f"{MOE_CONT_LENS}, max_new {MOE_CONT_MAX_NEW}: all complete; {len(sched)} decode "
+          f"steps, {mid} admissions mid-stream; {n_tok} tokens in {cseconds:.3f} s = "
+          f"{n_tok / cseconds:.1f} tokens/s; decode "
+          f"{statistics.median(c['seconds'] for c in ccalls['decode']) * 1e3:.3f} ms per step "
+          f"(median); K5 launches {k5_cont}")
+
+    reset_counts()
+    with plain_versions(), moe_routes(replay=k_routes) as p_routes:
+        _, pc_calls, pc_seconds = lm_continuous(model, cont_prompts, max_seq=MOE_CONT_MAX_SEQ,
+                                                max_new=MOE_CONT_MAX_NEW)
+    if any(launch_counts().values()):
+        fail("a kernel launched during the plain moe continuous run")
+    moved = route_shares(p_routes, k_routes)
+    plain = continuous_steps(pc_calls, sched, admissions, len(reqs), MOE_CONT_MAX_NEW)
+    diff, n_logits, n_tokens, total = compare_paths("moe continuous", kernel, plain)
+    print(f"moe continuous plain path (routes pinned): {n_tok / pc_seconds:.1f} tokens/s; share "
+          f"of token-choices its own top-k would route elsewhere per layer in the admission "
+          f"prefills {prefill_shares(moved, n_layers)}; "
+          f"logits on the same context differ by at most {diff:.4e} (tol {LM_LOGIT_TOL}) over "
+          f"{n_logits} of {total} steps; tokens equal on {n_tokens} of {total} steps (each "
+          f"request up to its first plain margin < {LM_MARGIN})")
+    del kernel, plain, ccalls, pc_calls, k_routes, p_routes, moved
+    tokens = torch.from_numpy(np.stack([np.pad(p, (max(LM_STATIC_LENS) - len(p), 0))
+                                        for p in static_prompts])).to(model.device)
+    lm_traces(model, tokens, label="moe", ours="flash_fwd")
+    del model
+    torch.cuda.empty_cache()
+    return k5_static + k5_cont
+
+
+def moe_training(cfg, smi: str) -> None:
+    """One AdamW train step of qwen3-moe at MOE_TRAIN_LAYERS layers (remat
+    per block, as published) on 2 x 2048; then (2) of phase 7b with the
+    routes pinned (remat off in both, so the calls replay in order)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.pipeline import BatchStream
+    from repro_torch.models import build
+    from repro_torch.models import params as pr
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.training.trainer import TrainState, make_train_step, value_and_grad
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build(cfg)
+    params = pr.init_params(model.param_specs(),
+                            torch.Generator(device="cuda").manual_seed(SEED + 10), "cuda")
+    batch = BatchStream(cfg, InputShape("train", TR_SEQ, TR_SMALL_BATCH, "train"), seed=SEED,
+                        device="cuda").batch_at(0)
+    opt = adamw(AdamWConfig(lr=TR_LR))
+    state = TrainState(params, opt.init(params))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = make_train_step(model, opt)(state, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    counts = launch_counts()
+    aux = float(metrics["aux"])
+    print(f"moe train: {cfg.name} cut to {cfg.n_layers} layers ({model.param_count() / 1e9:.3f} "
+          f"B parameters), remat {cfg.remat}, batch {TR_SMALL_BATCH} x {TR_SEQ}: one AdamW step "
+          f"{step_s * 1e3:.1f} ms (the first, with its warm-up), loss "
+          f"{float(metrics['loss']):.6f}, ce {float(metrics['ce']):.6f}, aux {aux:.6f}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {counts}; "
+          f"card {smi}")
+    if counts["flash_attention"] or counts["ssd_chunks"]:
+        fail(f"a kernel launched in the moe train step: {counts}")
+    if not (math.isfinite(aux) and aux > 0 and math.isfinite(float(metrics["loss"]))):
+        fail(f"moe train: loss {float(metrics['loss'])}, aux {aux}")
+    params = state.params
+    del state, metrics
+    torch.cuda.empty_cache()
+
+    c16 = dataclasses.replace(cfg, remat=False)
+    c32 = dataclasses.replace(c16, dtype="float32")
+    with moe_routes() as r16:
+        (l16, _), g16 = value_and_grad(build(c16).loss, has_aux=True)(params, batch)
+    with torch.no_grad(), moe_routes() as r32:
+        build(c32).apply(params, batch)
+    free = route_shares(r32, r16)
+    with moe_routes(replay=r16):
+        (l32, _), g32 = value_and_grad(build(c32).loss, has_aux=True)(params, batch)
+    print(f"moe train check 2: loss bf16 {float(l16):.6f}, float32 (routes pinned) "
+          f"{float(l32):.6f}; unpinned, the float32 model routes "
+          f"{[round(float(m.mean()), 5) for m in free]} of the token-choices (per "
+          "layer) to another expert")
+    check_gaps("moe train (bf16 against float32 gradients, routes pinned)", grad_gaps(g16, g32),
+               TRAIN_GRAD_REL, 2 * TRAIN_GRAD_REL)
+    del params, g16, g32, r16, r32
+    torch.cuda.empty_cache()
+
+
+def xlstm_serving(cfg, smi: str) -> None:
+    """xlstm-1.3b as published: a static batch (prefill split by block
+    kind) and continuous batching. No kernel is on its path."""
+    import torch
+
+    from repro_torch.models import build
+    from repro_torch.models import xlstm as xl
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build(cfg).init(torch.Generator(device="cuda").manual_seed(SEED + 11), device="cuda")
+    model.compute_params()
+    torch.cuda.synchronize()
+    n_super, per = model._xlstm_shape()
+    print(f"xlstm model: {cfg.name}, {model.param_count() / 1e9:.3f} B parameters, "
+          f"{n_super * (per - 1)} mLSTM + {n_super} sLSTM blocks, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads; drawn in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 11)
+    static_prompts = [rng.integers(2, cfg.vocab_size, size=XL_STATIC_LEN).astype(np.int32)
+                      for _ in range(XL_SLOTS)]
+    cont_prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+                    for n in XL_CONT_LENS]
+
+    # Time inside each kind of block during the static prefill.
+    spent = {"mLSTM": 0.0, "sLSTM": 0.0}
+    originals = {"mLSTM": xl.mlstm_apply, "sLSTM": xl.slstm_apply}
+
+    def clocked(kind):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = originals[kind](*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[kind] += time.perf_counter() - t
+            return out
+        return run
+
+    reset_counts()
+    xl.mlstm_apply, xl.slstm_apply = clocked("mLSTM"), clocked("sLSTM")
+    try:
+        toks, calls, seconds = lm_static(model, static_prompts, slots=XL_SLOTS,
+                                         max_seq=XL_MAX_SEQ, max_new=XL_MAX_NEW)
+    finally:
+        xl.mlstm_apply, xl.slstm_apply = originals["mLSTM"], originals["sLSTM"]
+    counts = launch_counts()
+    pre_s = calls["prefill"][0]["seconds"]
+    dec = [c["seconds"] for c in calls["decode"]]
+    n_tok = sum(len(t) for t in toks)
+    print(f"xlstm static: {XL_SLOTS} slots, prompts of {XL_STATIC_LEN}, max_seq {XL_MAX_SEQ}, "
+          f"{XL_MAX_NEW} new tokens each: prefill {pre_s * 1e3:.3f} ms (mLSTM blocks "
+          f"{spent['mLSTM'] * 1e3:.3f} ms, sLSTM blocks {spent['sLSTM'] * 1e3:.3f} ms, "
+          f"synchronized around each block), decode {statistics.median(dec) * 1e3:.3f} ms per "
+          f"step (median of {len(dec)}), {n_tok} tokens in {seconds:.3f} s = "
+          f"{n_tok / seconds:.1f} generated tokens/s ({XL_SLOTS / statistics.median(dec):.1f} "
+          f"tokens/s in decode); peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"launches {counts}; card {smi}")
+    if any(counts.values()):
+        fail(f"a kernel launched in the xlstm static run: {counts}")
+    for row in calls["prefill"][0]["logits"], *(c["logits"] for c in calls["decode"]):
+        if not bool(torch.isfinite(row).all()):
+            fail("non-finite logits in the xlstm static run")
+    del calls
+
+    sched, admissions = continuous_schedule(XL_CONT_MAX_NEW, XL_CONT_SLOTS)
+    reqs, ccalls, cseconds = lm_continuous(model, cont_prompts, slots=XL_CONT_SLOTS,
+                                           max_seq=XL_CONT_MAX_SEQ, max_new=XL_CONT_MAX_NEW)
+    mid = sum(step >= 0 for step, _, _ in admissions)
+    if not all(r.done and len(r.out) == m for r, m in zip(reqs, XL_CONT_MAX_NEW)):
+        fail(f"xlstm continuous: not every request completed: {[len(r.out) for r in reqs]}")
+    kernel = continuous_steps(ccalls, sched, admissions, len(reqs), XL_CONT_MAX_NEW)
+    if ([[st[0] for st in r] for r in kernel] != [r.out for r in reqs]
+            or len(ccalls["decode"]) != len(sched) or mid == 0):
+        fail("xlstm continuous: the recorded calls do not replay the schedule")
+    if not all(bool(torch.isfinite(c["logits"]).all()) for c in ccalls["decode"]):
+        fail("non-finite logits in the xlstm continuous run")
+    n_tok = sum(len(r.out) for r in reqs)
+    print(f"xlstm continuous: {len(reqs)} requests over {XL_CONT_SLOTS} slots, prompts "
+          f"{XL_CONT_LENS}, max_new {XL_CONT_MAX_NEW}: all complete; {len(sched)} decode steps, "
+          f"{mid} admissions mid-stream; {n_tok} tokens in {cseconds:.3f} s = "
+          f"{n_tok / cseconds:.1f} tokens/s; decode "
+          f"{statistics.median(c['seconds'] for c in ccalls['decode']) * 1e3:.3f} ms per step "
+          f"(median), admission prefills "
+          f"{[round(c['seconds'] * 1e3, 1) for c in ccalls['prefill']]} ms")
+    _, cache = model.prefill({"tokens": torch.from_numpy(static_prompts[0][None, :256])
+                              .to(model.device)}, XL_MAX_SEQ)
+    step = {"tokens": torch.zeros((1, 1), dtype=torch.int32, device=model.device)}
+    trace_call("xlstm", "one decode step (1 slot)", lambda: model.decode_step(cache, step),
+               "xlstm_decode_trace")
+    del model, cache
+    torch.cuda.empty_cache()
+
+
+def vlm_run(cfg, smi: str) -> None:
+    """paligemma-3b as published: ``Model.prefill`` of VLM_BATCH x
+    (n_patches + VLM_TEXT), then VLM_STEPS greedy ``decode_step``s."""
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models import build
+    from repro_torch.serving.engine import greedy
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build(cfg).init(torch.Generator(device="cuda").manual_seed(SEED + 12), device="cuda")
+    model.compute_params()
+    s = cfg.n_patches + VLM_TEXT
+    batch = make_batch(cfg, InputShape("vlm", s, VLM_BATCH, "prefill"),
+                       torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    max_seq = s + VLM_STEPS
+    reset_counts()
+    model.prefill(batch, max_seq)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(batch, max_seq)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    dec, rows = [], [logits]
+    cur = greedy(logits)
+    t_all = time.perf_counter()
+    for _ in range(VLM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(cache, {"tokens": cur})
+        torch.cuda.synchronize()
+        dec.append(time.perf_counter() - t0)
+        rows.append(logits)
+        cur = greedy(logits)
+    seconds = pre_s + time.perf_counter() - t_all
+    counts = launch_counts()
+    print(f"vlm: {cfg.name}, {model.param_count() / 1e9:.3f} B parameters, prefix-LM over "
+          f"{cfg.n_patches} patches: prefill {tuple(batch['patches'].shape)} patches + "
+          f"{tuple(batch['tokens'].shape)} tokens {pre_s * 1e3:.3f} ms, decode "
+          f"{statistics.median(dec) * 1e3:.3f} ms per step (median of {VLM_STEPS}), "
+          f"{VLM_BATCH * (VLM_STEPS + 1) / seconds:.1f} generated tokens/s "
+          f"({VLM_BATCH / statistics.median(dec):.1f} in decode); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {counts}; card {smi}")
+    if any(counts.values()):
+        fail(f"a kernel launched in the vlm run (the prefix-LM mask keeps K5 shut): {counts}")
+    if (not all(bool(torch.isfinite(r).all()) for r in rows)
+            or cache["pos"].tolist() != [s + VLM_STEPS] * VLM_BATCH):
+        fail("vlm: non-finite logits or a wrong cache position")
+    trace_call("vlm", f"one prefill ({VLM_BATCH}, {s})", lambda: model.prefill(batch, max_seq),
+               "vlm_prefill_trace")
+    del model, cache, rows
+    torch.cuda.empty_cache()
+
+
+def audio_run(cfg, smi: str) -> None:
+    """hubert-xlarge as published: ``Model.loss``'s forward (no grad) on
+    AUDIO_BATCH x AUDIO_FRAMES frames with the synthetic mask."""
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models import build
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build(cfg).init(torch.Generator(device="cuda").manual_seed(SEED + 13), device="cuda")
+    params = model.master_params()
+    batch = make_batch(cfg, InputShape("audio", AUDIO_FRAMES, AUDIO_BATCH, "train"),
+                       torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    reset_counts()
+    with torch.no_grad():
+        model.loss(params, batch)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, metrics = model.loss(params, batch)
+        torch.cuda.synchronize()
+    loss_s = time.perf_counter() - t0
+    counts = launch_counts()
+    masked = float(batch["mask"].mean())
+    print(f"audio: {cfg.name}, {model.param_count() / 1e9:.3f} B parameters, encoder, head_dim "
+          f"{cfg.head_dim}: Model.loss forward on {AUDIO_BATCH} x {AUDIO_FRAMES} frames of "
+          f"{cfg.frontend_dim} ({masked:.4f} of them masked) {loss_s * 1e3:.3f} ms = "
+          f"{AUDIO_BATCH * AUDIO_FRAMES / loss_s:.1f} frames/s, loss {float(loss):.6f}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {counts}; card {smi}")
+    if any(counts.values()) or not math.isfinite(float(loss)) or not 0.04 < masked < 0.12:
+        fail(f"audio: launches {counts}, loss {float(loss)}, masked share {masked}")
+    try:
+        model.decode_step({}, {"tokens": torch.zeros((1, 1), dtype=torch.int32, device="cuda")})
+    except ValueError:
+        pass
+    else:
+        fail("audio: the encoder's decode_step did not raise")
+    with torch.no_grad():
+        trace_call("audio", f"one loss forward ({AUDIO_BATCH}, {AUDIO_FRAMES})",
+                   lambda: model.loss(params, batch), "audio_loss_trace")
+    del model, params
+    torch.cuda.empty_cache()
+
+
+def families_phase(gen, smi: str) -> tuple[dict, int]:
+    """Phase 7c. Returns K5's rows at qwen3-moe's shapes and K5's launches
+    in the moe engine runs through the kernels."""
+    import torch
+
+    t_phase = time.perf_counter()
+    cfgs = family_cfgs()
+    rows = {}
+    moe = cfgs["moe"]
+    # (B, S): the static prefill's launch, then each batch-1 admission
+    # prefill of the continuous run that opens K5's gate.
+    shapes = [(LM_SLOTS, max(LM_STATIC_LENS))] + [
+        (1, s) for s in sorted(set(MOE_CONT_LENS)) if k5_gate_open(moe, s, "cuda")]
+    for b, s in shapes:
+        r = flash_row(gen, b, s, moe.n_heads, moe.n_kv_heads, moe.head_dim, torch.bfloat16,
+                      True)
+        rows[r.pop("name")] = r
+    print_kernel_rows(rows)
+    family_reference_checks()
+    k5 = moe_serving(moe, smi)
+    moe_training(cfgs["moe_train"], smi)
+    xlstm_serving(cfgs["xlstm"], smi)
+    vlm_run(cfgs["vlm"], smi)
+    audio_run(cfgs["audio"], smi)
+    print(f"phase 7c (the remaining LM families): {time.perf_counter() - t_phase:.1f} s")
+    return rows, k5
 
 
 # ---------------------------------------------------------------------------
@@ -3624,6 +4268,11 @@ def main() -> int:
 
     # Phase 7b.
     launches["flash_attention"] += lm_training_phase(smi)
+
+    # Phase 7c.
+    family_rows, k5_families = families_phase(gen, smi)
+    rows.update(family_rows)
+    launches["flash_attention"] += k5_families
 
     # Phase 8.
     ssd_rows, launches["ssd_chunks"] = hybrid_phase(gen)

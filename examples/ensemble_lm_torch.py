@@ -5,8 +5,8 @@ then vote-reduce their predictions.
 
   PYTHONPATH=src python examples/ensemble_lm_torch.py --members 4 --steps 15 --device cpu
 
-The port trains the dense and hybrid families (xlstm, the reference's
-example, is not ported yet), so the default arch is qwen3-0.6b, reduced.
+Every family trains (``--arch xlstm-1.3b``, the reference's example, too);
+the default arch is qwen3-0.6b, reduced, as the reference's.
 """
 
 from __future__ import annotations

@@ -1,8 +1,7 @@
 """Config registry: ``get_config("<arch-id>")`` -> ArchConfig.
 
-Arch ids are the JAX package's names; each module cites its source. Only
-the dense family runs in the port so far (``models.model.Model`` raises
-for the others).
+Arch ids are the JAX package's names; each module cites its source. Every
+family runs in the port (``models.model.Model``).
 """
 
 from __future__ import annotations

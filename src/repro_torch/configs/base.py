@@ -5,8 +5,8 @@ One frozen dataclass covers all six families (dense / moe / ssm / hybrid /
 xlstm / audio / vlm). Every ``repro_torch/configs/<arch>.py`` file exports
 ``CONFIG`` with the exact published dimensions (source cited in the module
 docstring); ``reduced()`` gives the smoke variant (2 layers, d_model <= 256,
-<= 4 experts, float32) the CPU tests run. The port runs the dense family;
-the full qwen3-0.6b config runs on the card in ``chip_smoke.py``.
+<= 4 experts, float32) the CPU tests run. The port runs every family;
+``chip_smoke.py`` runs full configs of each on the card.
 """
 
 from __future__ import annotations

@@ -7,7 +7,9 @@
 // models/layers.py::attn_apply for full attention without a prefix, whenever
 // the width is a multiple of 512 and head_dim a multiple of 128 (the
 // reference's gate): 28 launches per prefill of qwen3-0.6b, q (8, 2048, 16,
-// 128) and k, v (8, 2048, 8, 128) bf16 at the static prefill.
+// 128) and k, v (8, 2048, 8, 128) bf16 at the static prefill; 8 per prefill
+// of qwen3-moe-30b-a3b cut to 8 layers, q (8, 2048, 32, 128) over k, v (8,
+// 2048, 4, 128).
 //
 // Layout: q (B, S, H, hd) and k, v (B, S, KV, hd) in the model's own layout,
 // read in place at their strides (last dimension contiguous, every other
@@ -32,8 +34,9 @@
 //
 // bf16 design (FlashAttention-3's shape): one CTA per (128-row q tile, batch *
 // head), three warpgroups; the blocks run in groups of one KV head of one
-// batch entry (its K and V stay in L2 while the group's 2 x 16 CTAs run),
-// heaviest causal tiles first within a group.
+// batch entry (its K and V stay in L2 while the group's H / KV x S / 128
+// CTAs run: 2 x 16 for qwen3-0.6b's prefill at S = 2048, 8 x 16 for
+// qwen3-moe-30b-a3b's), heaviest causal tiles first within a group.
 //   - Warpgroup 0 is the producer: one thread starts TMA loads through 4-D
 //     tensor maps (dims hd, heads, S, B, encoded on the host), Q once and K
 //     and V into a ring of three stages, each stage guarded by a "full"

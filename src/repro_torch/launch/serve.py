@@ -4,8 +4,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --reduced --device cpu
 
-The dense and hybrid (zamba2-7b) families run; the other archs raise
-``NotImplementedError``.
+Every text arch serves (dense, moe, hybrid, xlstm). An encoder (hubert)
+exits, as the reference's launcher does; a vlm arch (paligemma) raises in
+the engine, which feeds tokens only, as the reference's does
+(``serving.engine.check_servable``).
 
 Parameters are drawn from ``torch.Generator(...).manual_seed(--seed)``
 (not the reference's ``jax.random`` numbers) and the prompts from numpy

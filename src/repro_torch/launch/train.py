@@ -7,8 +7,8 @@ default.
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --reduced \\
       --steps 10 --ensemble 4 --device cpu    # the paper's MapReduce ensemble schedule
 
-The dense and hybrid (zamba2-7b) families train; the other archs raise
-``NotImplementedError``. Parameters are drawn from
+Every family trains (the audio and vlm batches carry their stub frames
+and patches, see ``data.synthetic``). Parameters are drawn from
 ``torch.Generator(...).manual_seed(--seed)`` and batch i from a generator
 seeded ``--seed + i + 1`` (the reference's ``make_batch`` seeds), not the
 reference's ``jax.random`` numbers. Prints the reference's ``[train]``

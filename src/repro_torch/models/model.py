@@ -1,18 +1,28 @@
-"""Model assembly, dense and hybrid families (twin of the JAX package's
+"""Model assembly for every family of the zoo (twin of the JAX package's
 ``models/model.py``).
 
 ``build(cfg)`` returns a ``Model`` (an ``nn.Module``) whose parameters
 mirror the reference's tree path for path, so a state dict key is the
-reference's path joined with ``.``: ``embed``, ``unembed``,
-``final_ln.scale``, and
+reference's path joined with ``.``: ``unembed``, ``final_ln.scale``,
+``embed`` (``frontend_proj`` for the audio modality), and
 
-  * dense: ``blocks.{ln1,attn,ln2,ffn}.*`` with the layer weights stacked
-    ``(L, ...)``;
+  * dense, audio, vlm: ``blocks.{ln1,attn,ln2,ffn}.*`` with the layer
+    weights stacked ``(L, ...)``; moe: ``blocks.{ln1,attn,ln2,moe}.*``,
+    the experts stacked ``(L, E, ...)`` (``models.moe``);
   * hybrid (zamba2): groups of [shared-attention site + ``attn_every``
     Mamba2 blocks] and a remainder group. ``mamba_groups.*`` is stacked
     ``(n_full, attn_every, ...)``, ``mamba_rest.*`` ``(rem, ...)``, and
     ``shared_attn.*`` is one block whose parameters every site shares;
-    each site has its own KV cache.
+    each site has its own KV cache;
+  * ssm (xlstm): super-blocks of [(period-1) mLSTM + 1 sLSTM]:
+    ``supers.mlstm.*`` stacked ``(n_super, period - 1, ...)``,
+    ``supers.slstm.*`` ``(n_super, ...)`` (``models.xlstm``).
+
+The frontends are the reference's stubs: audio ``frames`` (B, S,
+frontend_dim) go through ``frontend_proj``; vlm ``patches`` (B, n_patches,
+d_model) go before the text tokens, attended bidirectionally under
+``prefix_lm``, and the loss reads the text positions only. An encoder
+(hubert) has no decode step.
 
 Python loops over the layers take the place of ``lax.scan``.
 
@@ -34,19 +44,19 @@ gives the same bits every step. Training (``apply`` and ``loss``) takes
 an explicit tree of float32 masters, the reference's functional form, and
 casts it inside autograd on every call, so gradients reach the masters in
 float32. The leaves the reference reads in float32 stay float32 in both:
-the norm scales, and Mamba2's ``dt_bias`` and ``A_log``. With
-``cfg.remat`` each dense block, and each full hybrid group, is a
-non-reentrant ``torch.utils.checkpoint`` (the reference's
-``jax.checkpoint`` of its scan body).
+the norm scales (and xLSTM's ``out_norm``), and Mamba2's ``dt_bias`` and
+``A_log``. With ``cfg.remat`` each dense or moe block, each full hybrid
+group and each xLSTM super-block is a non-reentrant
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
+scan body).
 
 Under grad the kernels' gates are shut (``layers._use_flash_kernel``,
 ``ssm._use_ssd_kernel``): K5 and K6 have no backward, nor have the
 reference's Pallas kernels, so training takes the plain paths.
 
-Not ported yet (each raises ``NotImplementedError``): the moe, ssm,
-audio and vlm families and the mesh fields (``act_axes``, ``seq_shard``,
-``context_parallel``, ``moe_wg``) (ROADMAP.md queue 1: "The remaining LM
-families", "Mesh and dry-run tools").
+Not ported yet (``build`` raises ``NotImplementedError``): the mesh
+fields (``act_axes``, ``seq_shard``, ``context_parallel``, ``moe_wg``)
+(ROADMAP.md queue 1, "Mesh and dry-run tools").
 """
 
 from __future__ import annotations
@@ -61,21 +71,18 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as ly
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import params as pr
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xl
 
 Params = dict[str, Any]
 
 # Leaves the reference reads in float32 (from its float32 masters).
-_FLOAT32_LEAVES = ("scale", "dt_bias", "A_log")
+_FLOAT32_LEAVES = ("scale", "dt_bias", "A_log", "out_norm")
 
-_FAMILIES = 'ROADMAP.md queue 1, "The remaining LM families"'
-_WAITING = {
-    "moe": f"{_FAMILIES} (models/moe.py)",
-    "ssm": f"{_FAMILIES} (models/xlstm.py)",
-    "audio": f"{_FAMILIES} (the audio frontend)",
-    "vlm": f"{_FAMILIES} (the vlm prefix-LM frontend)",
-}
+# Families whose layers are one stack of attention blocks.
+_BLOCK_FAMILIES = ("dense", "moe", "audio", "vlm")
 
 
 class TensorSpec(NamedTuple):
@@ -135,11 +142,6 @@ def _register(module: nn.Module, tree: Params) -> None:
 class Model(nn.Module):
     def __init__(self, cfg: ArchConfig):
         super().__init__()
-        if cfg.family not in ("dense", "hybrid"):
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family is not ported yet: "
-                f"{_WAITING.get(cfg.family, _FAMILIES)}"
-            )
         self.cfg = cfg
         self._compute: tuple[Params, Any] | None = None
         # Shapes only until init() or load_params() materializes them.
@@ -153,17 +155,33 @@ class Model(nn.Module):
     def param_specs(self) -> Params:
         cfg = self.cfg
         p: Params = {"final_ln": ly.rmsnorm_specs(cfg.d_model),
-                     "unembed": pr.dense(cfg.d_model, cfg.vocab_size),
-                     "embed": pr.embed(cfg.vocab_size, cfg.d_model)}
-        if cfg.family == "dense":
-            p["blocks"] = _stack_specs(ly.block_specs(cfg), cfg.n_layers)
-        else:  # hybrid
+                     "unembed": pr.dense(cfg.d_model, cfg.vocab_size)}
+        if cfg.modality == "audio":
+            p["frontend_proj"] = pr.dense(cfg.frontend_dim, cfg.d_model)
+        else:
+            p["embed"] = pr.embed(cfg.vocab_size, cfg.d_model)
+
+        if cfg.family in _BLOCK_FAMILIES:
+            block = ly.block_specs(cfg)
+            if cfg.family == "moe":
+                del block["ffn"]
+                block["moe"] = moe_mod.moe_specs(cfg)
+            p["blocks"] = _stack_specs(block, cfg.n_layers)
+        elif cfg.family == "hybrid":
             n_full, rem, per = self._hybrid_shape()
             mamba = ssm_mod.mamba2_specs(cfg)
             p["mamba_groups"] = _stack_specs(_stack_specs(mamba, per), n_full)
             if rem:
                 p["mamba_rest"] = _stack_specs(mamba, rem)
             p["shared_attn"] = ly.block_specs(cfg)
+        elif cfg.family == "ssm":  # xlstm
+            n_super, per = self._xlstm_shape()
+            p["supers"] = _stack_specs(
+                {"mlstm": _stack_specs(xl.mlstm_specs(cfg), per - 1),
+                 "slstm": xl.slstm_specs(cfg)},
+                n_super)
+        else:
+            raise ValueError(cfg.family)
         return p
 
     # --- topology helpers ----------------------------------------------------
@@ -174,6 +192,15 @@ class Model(nn.Module):
         n_full = self.cfg.n_layers // per
         rem = self.cfg.n_layers - n_full * per
         return n_full, rem, per
+
+    def _xlstm_shape(self) -> tuple[int, int]:
+        """(super-blocks, blocks per super-block: period - 1 mLSTM and one
+        sLSTM)."""
+        per = self.cfg.slstm_period
+        if self.cfg.n_layers % per:
+            raise ValueError(f"{self.cfg.name}: n_layers {self.cfg.n_layers} is not a "
+                             f"multiple of slstm_period {per}")
+        return self.cfg.n_layers // per, per
 
     @property
     def n_attn_sites(self) -> int:
@@ -244,16 +271,18 @@ class Model(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        return self.unembed.device
 
     def compute_params(self) -> tuple[Params, Any]:
         """(top-level params, per-layer params) in the compute dtype, made
         once: weights, biases and tables cast to ``cdtype``; norm scales,
-        ``dt_bias`` and ``A_log`` float32. Per-layer trees are views of the
-        stacked weights: for the dense family a list of the L blocks, for
-        the hybrid family one list per attention site of the Mamba2 blocks
-        that follow it (n_full lists of attn_every, then the remainder's
-        rem; the shared attention block is ``params["shared_attn"]``)."""
+        xLSTM's ``out_norm``, ``dt_bias`` and ``A_log`` float32. Per-layer
+        trees are views of the stacked weights: for the dense, moe, audio
+        and vlm families a list of the L blocks; for the hybrid family one
+        list per attention site of the Mamba2 blocks that follow it (n_full
+        lists of attn_every, then the remainder's rem; the shared attention
+        block is ``params["shared_attn"]``); for the ssm family one
+        (mLSTM blocks, sLSTM block) pair per super-block."""
         if self._compute is None:
             self._require_params()
             self._compute = self._to_compute(
@@ -273,8 +302,10 @@ class Model(nn.Module):
         dt = ly.cdtype(self.cfg)
         tree = pr.unflatten((path, t if path[-1] in _FLOAT32_LEAVES else t.to(dt))
                             for path, t in pairs)
-        if self.cfg.family == "dense":
+        if self.cfg.family in _BLOCK_FAMILIES:
             layers = _unstack(tree["blocks"])
+        elif self.cfg.family == "ssm":
+            layers = [(_unstack(sp["mlstm"]), sp["slstm"]) for sp in _unstack(tree["supers"])]
         else:
             layers = [_unstack(g) for g in _unstack(tree["mamba_groups"])]
             if "mamba_rest" in tree:
@@ -283,8 +314,14 @@ class Model(nn.Module):
 
     # --- embedding -----------------------------------------------------------
     def _embed_in(self, params: Params, batch: Params) -> torch.Tensor:
-        dt = ly.cdtype(self.cfg)
-        return params["embed"].to(dt)[batch["tokens"].long()]
+        cfg = self.cfg
+        dt = ly.cdtype(cfg)
+        if cfg.modality == "audio":
+            return batch["frames"].to(dt) @ params["frontend_proj"].to(dt)
+        tok = params["embed"].to(dt)[batch["tokens"].long()]
+        if cfg.modality == "vlm":
+            return torch.cat([batch["patches"].to(dt), tok], dim=1)
+        return tok
 
     def _unembed(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         x = ly.rmsnorm(params["final_ln"], x)
@@ -294,16 +331,21 @@ class Model(nn.Module):
     def _backbone(self, params: Params, layers, x: torch.Tensor, *,
                   chunked: bool, collect: bool):
         """x: (B,S,d) embedded input. Returns (x, aux, raw cache or None):
-        dense, the per-layer [(k, v)]; hybrid, per attention site ((k, v),
-        [the Mamba2 caches of the blocks that follow it]). Under grad with
-        ``cfg.remat`` each dense block and each full hybrid group is
-        recomputed in the backward (the remainder group is not, as in the
+        dense, moe, audio, vlm, the per-layer [(k, v)]; hybrid, per
+        attention site ((k, v), [the Mamba2 caches of the blocks that
+        follow it]); ssm, per super-block ([the mLSTM caches], the sLSTM
+        cache). aux is the moe family's load-balance loss averaged over the
+        layers, else 0. Under grad with ``cfg.remat`` each dense or moe
+        block, each full hybrid group and each super-block is recomputed
+        in the backward (the hybrid remainder group is not, as in the
         reference)."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        if cfg.family == "dense":
+        prefix = cfg.n_patches if cfg.prefix_lm else 0
+        if cfg.family in ("dense", "audio", "vlm"):
             def block(h, bp):
-                out = ly.block_apply(cfg, bp, h, chunked=chunked, return_kv=collect)
+                out = ly.block_apply(cfg, bp, h, prefix_len=prefix, chunked=chunked,
+                                     return_kv=collect)
                 return out if collect else (out, None)
 
             kvs = []
@@ -312,6 +354,36 @@ class Model(nn.Module):
                 x, kv = step(x, bp)
                 kvs.append(kv)
             return x, aux, (kvs if collect else None)
+
+        if cfg.family == "moe":
+            def moe_block(h, bp):
+                return moe_mod.moe_block_apply(cfg, bp, h, chunked=chunked, return_kv=collect)
+
+            kvs = []
+            step = _maybe_remat(moe_block, cfg)
+            for bp in layers:
+                x, aux1, kv = step(x, bp)
+                aux = aux + aux1
+                kvs.append(kv)
+            return x, aux / cfg.n_layers, (kvs if collect else None)
+
+        if cfg.family == "ssm":
+            def super_block(h, mlstms, slstm):
+                mcs = []
+                for mp in mlstms:
+                    out = xl.mlstm_apply(cfg, mp, h, return_cache=collect)
+                    h, mc = out if collect else (out, None)
+                    mcs.append(mc)
+                out = xl.slstm_apply(cfg, slstm, h, return_cache=collect)
+                h, sc = out if collect else (out, None)
+                return h, (mcs, sc)
+
+            raw = []
+            step = _maybe_remat(super_block, cfg)
+            for mlstms, slstm in layers:
+                x, sup = step(x, mlstms, slstm)
+                raw.append(sup)
+            return x, aux, (raw if collect else None)
 
         def group(h, mamba):
             out = ly.block_apply(cfg, params["shared_attn"], h, chunked=chunked,
@@ -358,9 +430,13 @@ class Model(nn.Module):
     def loss(self, params: Params, batch: Params) -> tuple[torch.Tensor, Params]:
         """(total, {"ce", "aux"}): the mean next-token cross-entropy from a
         float32 log-softmax (over ``batch["mask"]``'s positions when given,
-        divided by max(sum(mask), 1)) plus ``router_aux_weight * aux``."""
+        divided by max(sum(mask), 1), as for the audio modality's masked
+        frames; over the text positions for the vlm modality) plus
+        ``router_aux_weight * aux``."""
         cfg = self.cfg
         logits, aux = self.apply(params, batch)
+        if cfg.modality == "vlm":  # loss only over the text positions
+            logits = logits[:, cfg.n_patches:, :]
         logp = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(logp, -1, batch["targets"].long()[..., None])[..., 0]
         mask = batch.get("mask")
@@ -378,9 +454,18 @@ class Model(nn.Module):
         kv = ly.attn_cache_shape(cfg, batch, max_seq)
         # PER-SLOT positions (continuous batching)
         pos = TensorSpec((batch,), torch.int32)
-        if cfg.family == "dense":
+        if cfg.family in _BLOCK_FAMILIES:
             return {"layers": {k: TensorSpec((cfg.n_layers,) + v, dt) for k, v in kv.items()},
                     "pos": pos}
+        if cfg.family == "ssm":
+            n_super, per = self._xlstm_shape()
+            ms = xl.mlstm_cache_shape(cfg, batch)
+            return {"supers": {
+                "mlstm": {"conv": TensorSpec((n_super, per - 1) + ms["conv"], dt),
+                          "state": TensorSpec((n_super, per - 1) + ms["state"], torch.float32)},
+                "slstm": {n: TensorSpec((n_super,) + v, torch.float32)
+                          for n, v in xl.slstm_cache_shape(cfg, batch).items()}},
+                "pos": pos}
         n_full, rem, per = self._hybrid_shape()
         ms = ssm_mod.mamba2_cache_shape(cfg, batch)
 
@@ -416,8 +501,9 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill(self, batch: Params, max_seq: int, *,
                 chunked_attn: bool | None = None) -> tuple[torch.Tensor, Params]:
-        """Hybrid prompts have at least ``ssm_conv - 1`` tokens (see
-        ``models.ssm``)."""
+        """Hybrid and ssm prompts have at least ``ssm_conv - 1`` tokens (see
+        ``models.ssm``, ``models.xlstm``). The vlm batch's patches count in
+        the cache's positions."""
         params, layers = self.compute_params()
         x = self._embed_in(params, batch)
         b, s, _ = x.shape
@@ -426,8 +512,17 @@ class Model(nn.Module):
         logits = self._unembed(params, x[:, -1:, :])
         cache = self.init_cache(b, max_seq)
         cache["pos"].fill_(s)
-        if self.cfg.family == "dense":
+        if self.cfg.family in _BLOCK_FAMILIES:
             _write_kv(cache["layers"], raw, s)
+            return logits, cache
+        if self.cfg.family == "ssm":
+            ml, sl = cache["supers"]["mlstm"], cache["supers"]["slstm"]
+            for j, (mcs, sc) in enumerate(raw):
+                for i, mc in enumerate(mcs):
+                    for name, t in mc.items():
+                        ml[name][j, i].copy_(t)
+                for name, t in sc.items():
+                    sl[name][j].copy_(t)
             return logits, cache
         _write_kv(cache["attn"], [kv for kv, _ in raw], s)
         for site, (_, mcs) in zip(self._mamba_sites(cache), raw):
@@ -439,21 +534,36 @@ class Model(nn.Module):
     # --- single-token decode -------------------------------------------------
     @torch.no_grad()
     def decode_step(self, cache: Params, batch: Params) -> tuple[torch.Tensor, Params]:
-        """One token per slot. The K/V rows and the Mamba2 conv tails and
-        states are written into ``cache`` in place (see
-        ``layers.attn_decode``); the returned cache holds the same tensors
-        and ``pos + 1``."""
+        """One token per slot. The K/V rows, the Mamba2 and mLSTM conv tails
+        and states and the sLSTM states are written into ``cache`` in place
+        (see ``layers.attn_decode``); the returned cache holds the same
+        tensors and ``pos + 1``. An encoder raises."""
         cfg = self.cfg
         if cfg.is_encoder:
             raise ValueError("encoder-only arch has no decode step")
         params, layers = self.compute_params()
-        x = self._embed_in(params, batch)
+        x = params["embed"].to(ly.cdtype(cfg))[batch["tokens"].long()]
         pos = cache["pos"]
-        if cfg.family == "dense":
+        if cfg.family in _BLOCK_FAMILIES:
             k_all, v_all = cache["layers"]["k"], cache["layers"]["v"]
             for i, bp in enumerate(layers):
-                x, _ = ly.block_decode(cfg, bp, x, {"k": k_all[i], "v": v_all[i]}, pos)
+                kv = {"k": k_all[i], "v": v_all[i]}
+                decode = moe_mod.moe_block_decode if cfg.family == "moe" else ly.block_decode
+                x, _ = decode(cfg, bp, x, kv, pos)
             new_cache = {"layers": {"k": k_all, "v": v_all}, "pos": pos + 1}
+            return self._unembed(params, x), new_cache
+
+        if cfg.family == "ssm":
+            ml, sl = cache["supers"]["mlstm"], cache["supers"]["slstm"]
+            for j, (mlstms, slstm) in enumerate(layers):
+                for i, mp in enumerate(mlstms):
+                    x, mc = xl.mlstm_decode(cfg, mp, x, {n: t[j, i] for n, t in ml.items()})
+                    for n, t in mc.items():
+                        ml[n][j, i].copy_(t)
+                x, sc = xl.slstm_decode(cfg, slstm, x, {n: t[j] for n, t in sl.items()})
+                for n, t in sc.items():
+                    sl[n][j].copy_(t)
+            new_cache = {"supers": cache["supers"], "pos": pos + 1}
             return self._unembed(params, x), new_cache
 
         k_all, v_all = cache["attn"]["k"], cache["attn"]["v"]

@@ -8,9 +8,12 @@ refilled from the queue: the new prompt is prefilled at batch=1 and its
 cache leaves are spliced into the live batch cache at the slot index
 (``_splice``, which locates the batch axis of every leaf by shape
 difference: axis 1 of the stacked K/V ``(L or sites, B, S, K, hd)``,
-axis 2 of a hybrid model's ``mamba`` leaves ``(n_full, per, B, ...)``,
-axis 1 of its ``mamba_rest``, axis 0 of ``pos``). A hybrid model's
-prompts have at least ``ssm_conv - 1`` tokens (see ``models.ssm``).
+axis 2 of a hybrid model's ``mamba`` leaves ``(n_full, per, B, ...)``
+and of an xLSTM model's mLSTM leaves ``(n_super, period - 1, B, ...)``,
+axis 1 of ``mamba_rest`` and of the sLSTM leaves ``(n_super, B, ...)``,
+axis 0 of ``pos``). A hybrid or xLSTM model's prompts have at least
+``ssm_conv - 1`` tokens (see ``models.ssm``, ``models.xlstm``). The
+engines serve text models only (``engine.check_servable``).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
-from repro_torch.serving.engine import check_model_device, greedy
+from repro_torch.serving.engine import check_model_device, check_servable, greedy
 
 
 def _splice(batch_cache: Any, one_cache: Any, slot: int) -> Any:
@@ -66,6 +69,7 @@ class ContinuousEngine:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         check_model_device(self.model, self.device)
+        check_servable(self.model)
 
     def serve(self, requests: list[Request], max_steps: int = 10_000
               ) -> list[Request]:

@@ -5,6 +5,13 @@ package's ``serving/engine.py``).
 ``ServeEngine`` is the host-side loop: it left-pads the requests into a
 fixed batch, runs prefill once, then steps the decoder, with per-request
 stop handling. The cache is updated in place (the reference donates it).
+
+The engines serve the text modality of every family (dense, moe, hybrid,
+ssm). Like the reference's, they feed the model ``{"tokens"}`` only, so a
+vlm model (whose prefill needs ``patches``) or an audio encoder (no decode
+step) cannot be served through them; here they say so when built
+(``check_servable``), where the reference's fail at the first prefill.
+Such a model runs through ``Model.prefill`` / ``decode_step`` directly.
 """
 
 from __future__ import annotations
@@ -42,6 +49,19 @@ def check_model_device(model: Model, device: torch.device) -> None:
                          f"runs on {device}")
 
 
+def check_servable(model: Model) -> None:
+    """Raise for a model the token-only engines cannot serve: an encoder
+    (no decode step) or a non-text modality (its prefill needs frames or
+    patches)."""
+    cfg = model.cfg
+    if cfg.is_encoder or cfg.modality != "text":
+        raise ValueError(
+            f"{cfg.name}: the engines feed tokens only, as the reference's do; a "
+            f"{cfg.modality} {'encoder' if cfg.is_encoder else 'model'} is served through "
+            "Model.prefill / decode_step" + (" (an encoder has no decode step)"
+                                             if cfg.is_encoder else ""))
+
+
 @dataclasses.dataclass
 class ServeEngine:
     """Static batches on ``device`` (the card by default; the model's
@@ -57,6 +77,7 @@ class ServeEngine:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         check_model_device(self.model, self.device)
+        check_servable(self.model)
         self._step = make_serve_step(self.model)
 
     def _pad_requests(self, prompts: list[np.ndarray]) -> torch.Tensor:

@@ -427,10 +427,15 @@ def test_batches_follow_the_reference():
     assert float((toks[:, ::2] < 100).float().mean()) > 0.3
     stream.load_state_dict({"seed": 3, "step": 0})
     assert torch.equal(next(iter(stream))["tokens"], b["tokens"])
-    for arch in ("hubert-xlarge", "paligemma-3b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            synthetic.make_batch(get_config(arch), InputShape("t", 8, 1, "train"),
-                                 torch.Generator())
+    # The audio and vlm batches (held to the reference's specs in
+    # tests/test_torch_families.py): frames with targets and a mask; patches
+    # counted in the sequence before the text.
+    hub = synthetic.make_batch(get_config("hubert-xlarge"), InputShape("t", 8, 1, "train"),
+                               torch.Generator())
+    assert sorted(hub) == ["frames", "mask", "targets"] and hub["frames"].shape == (1, 8, 512)
+    pali = synthetic.make_batch(get_config("paligemma-3b"), InputShape("t", 264, 1, "train"),
+                                torch.Generator())
+    assert pali["patches"].shape == (1, 256, 2048) and pali["tokens"].shape == (1, 8)
     with pytest.raises(NotImplementedError, match="Mesh and dry-run tools"):
         pipeline.BatchStream(cfg, InputShape("t", 8, 1, "train"), shardings={}, device="cpu")
 
