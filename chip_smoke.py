@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of the seizure-scoring, training (emulated
 and over torch.distributed), dense LM serving, LM training, the moe,
-xLSTM, vlm and audio LM families and hybrid LM serving paths on one CUDA
-card.
+xLSTM, vlm and audio LM families, hybrid LM serving and the mesh
+Model's paths on one CUDA card, and the dry run's tools beside them.
 
 Run from the root of a checkout, with no arguments:
 
@@ -241,16 +241,39 @@ Phases (any failure exits non-zero):
      each request's first plain margin below half of that. Profiler
      traces of one prefill and one decode step, with K6's share; the
      prefill copies no tensor of B H S N elements with a head axis.
-  9. A ``kernels`` JSON line (K1-K6; launches summed over the counted
+  9. The mesh and dry-run tools. (a) The dry run of qwen3-0.6b x
+     train_4k, prefill_32k and decode_32k on the 16x16 fake world
+     (``python -m repro_torch.launch.dryrun``, one CPU subprocess a
+     shape with the card hidden, started when phase 9 begins, beside (b) and (c),
+     so that no earlier phase's host-bound times share the host with it,
+     and read at the phase's end): per record
+     the per-device memory, ``fits_hbm`` at 80 GB, flops, HBM bytes,
+     collectives by type, the roofline terms at H100 constants and
+     ``useful_flops_ratio``; any record with an error fails the phase.
+     (b) A world of one nccl rank, a (1, 1) mesh: qwen3-0.6b whole (bf16,
+     parameters placed by ``param_pspecs``) and one zamba2-7b group
+     prefill (8, 2048) through K5 (28 launches) and K6 (12) on the local
+     shard, their logits bit-equal to the unsharded model's on the same
+     rank. K5 against its plain version, element by element, at the (1,
+     2) mesh's per-rank shape, q (8, 2048, 8, 128) over k, v (8, 2048, 4,
+     128) bf16 causal. (c) Two gloo ranks sharing cuda:0 (MESH_GLOO_RULES: gloo
+     carries only all-reduces of the DTensor collectives for CUDA
+     tensors): qwen3-0.6b's prefill on a (1, 2) mesh (8 of 16 heads and 4
+     of 8 KV heads a rank through K5, the vocabulary split) and a (2, 1)
+     mesh (4 rows a rank), the ranks' logits within LM_LOGIT_TOL of (b)'s,
+     K5 28 launches a rank; one AdamW step of a 2-layer qwen3 on (2, 1)
+     against the one-process step (MESH_* comment).
+  10. A ``kernels`` JSON line (K1-K6; launches summed over the counted
      runs of phases 3, 4b, 6, 6c (every rank's mesh fit), 6d (every
      rank's engine runs), 7, 7b (its serving forwards), 7c (the moe
-     engine runs) and 8), the
+     engine runs), 8 and 9 (every rank's mesh prefills)), the
      script's seconds, the card line,
      and the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import gzip
 import json
@@ -4153,6 +4176,337 @@ def print_kernel_rows(rows: dict) -> None:
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the mesh and dry-run tools
+# ---------------------------------------------------------------------------
+
+# (a) The dry run of qwen3-0.6b on the 16x16 fake world, one CPU
+# subprocess a shape (fake tensors, the card hidden; one thread each, the
+# three side by side), started when phase 9 begins and read at its end;
+# its records go to chiprun_out/.
+DRY_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRY_OUT = ROOT / "chiprun_out" / "dryrun_qwen3_16x16.jsonl"
+DRY_TIMEOUT_S = 900.0
+# (b), (c) qwen3-0.6b at full width (bf16, random weights from MESH_SEED),
+# prefill at (8, 2048), K5 on each rank's local shard; one zamba2-7b group
+# through K6. The train step of (c): MESH_TRAIN_LAYERS layers, batch
+# TR_SMALL_BATCH x TR_SEQ, AdamW at TR_LR.
+MESH_SEED = SEED + 40
+MESH_BATCH, MESH_SEQ = 8, 2048
+MESH_TRAIN_LAYERS = 2
+# (c) against (b): the (1, 2) mesh splits the heads (8 of 16 and 4 of 8 KV
+# heads a rank, the row-parallel output projection summed over the two
+# ranks) and the (2, 1) mesh the rows (cuBLAS may pick other kernels for
+# 4 rows than for 8): bf16 roundings in other places, carried through 28
+# layers, as K5 against its plain version in phase 7 -- phase 7's rule,
+# LM_LOGIT_TOL. The train step on (2, 1) against the one-process step:
+# each rank's microbatch is one row, and the gradient is rounded to bf16
+# per rank before the ranks' sum -- phase 7b's check (3) (microbatches 2
+# against 1) differs the same way, so its rules hold: the loss within one
+# bf16 ulp, each leaf's clipped gradient within TRAIN_MICRO_REL. The
+# update of a first AdamW step (zero moments) is -lr (sign(g) + wd p) per
+# element, so where |g| lies within the gradients' gap of 0 its sign may
+# flip: each update element within MESH_FLIP (2 lr, one flip, and a
+# rounding) of the one-process update, and each leaf's elements whose
+# one-process |g| exceeds TRAIN_MICRO_REL of the leaf's largest (their
+# sign settled) within TRAIN_MICRO_REL of the leaf's largest update.
+# gloo carries all_reduce for CUDA tensors, and all_gather_into_tensor
+# crashes its ranks (tools/gloo_cuda_collectives.py): the card's two-rank
+# runs take the placements that need all-reduces only -- the 2d rules on
+# (1, 2) (tensor parallel), the dp_vocab rules on (2, 1) (rows over 'data',
+# the blocks' parameters whole) -- and each rank hands back its local
+# shard of the logits; the fsdp rules' gathers and reduce-scatters run on
+# the CPU gloo worlds (tests/test_torch_distributed.py).
+MESH_GLOO_RULES = {(1, 2): "2d", (2, 1): "dp_vocab"}
+MESH_FLIP = 2 * TR_LR * (1 + 2.0**-7)
+
+
+def _dry_out(shape: str):
+    return DRY_OUT.with_suffix(f".{shape}.jsonl")
+
+
+def start_dryrun() -> dict:
+    """The dry run's subprocesses, one a shape (the card hidden: they
+    trace fake CPU tensors)."""
+    import os
+
+    DRY_OUT.parent.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    procs = {}
+    for shape in DRY_SHAPES:
+        _dry_out(shape).unlink(missing_ok=True)
+        procs[shape] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", LM_ARCH, "--shape",
+             shape, "--out", str(_dry_out(shape))],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return procs
+
+
+def dryrun_records(procs: dict, smi: str) -> list[dict]:
+    """Phase 9a: wait for the dry run, print its records (also written
+    together to DRY_OUT), fail on any error."""
+    deadline = time.monotonic() + DRY_TIMEOUT_S
+    recs, logs = [], []
+    for shape, proc in procs.items():
+        try:
+            out, _ = proc.communicate(timeout=max(deadline - time.monotonic(), 1.0))
+        except subprocess.TimeoutExpired:
+            for p in procs.values():
+                p.kill()
+                p.communicate()
+            fail(f"the dry run did not finish within {DRY_TIMEOUT_S:g} s")
+        logs.append(out)
+        got = [json.loads(line) for line in _dry_out(shape).read_text().splitlines()] \
+            if _dry_out(shape).exists() else []
+        if proc.returncode or len(got) != 1:
+            print(out[-3000:])
+            fail(f"the dry run of {shape} exited {proc.returncode} with {len(got)} records")
+        recs += got
+        _dry_out(shape).unlink()
+    (ROOT / "chiprun_out" / "dryrun_qwen3_16x16.log").write_text("".join(logs))
+    DRY_OUT.write_text("".join(json.dumps(r) + "\n" for r in recs))
+    for r in recs:
+        if "error" in r:
+            fail(f"dry run {r['arch']} x {r['shape']} ({r['mesh']}): {r['error']}")
+        print(f"dryrun {r['arch']} x {r['shape']} on {r['mesh']} ({r['n_devices']} fake ranks, "
+              f"traced on the host CPU in {r['trace_s']} s, microbatches {r['microbatches']}): "
+              f"per device args {r['arg_bytes'] / 1e9:.3f} GB, temp {r['temp_bytes'] / 1e9:.3f} "
+              f"GB, out {r['output_bytes'] / 1e9:.3f} GB, fits_hbm {r['fits_hbm']} (80 GB); "
+              f"flops {r['hlo_flops_per_dev']:.4e}, HBM bytes {r['hbm_bytes_per_dev']:.4e}, "
+              f"collective bytes {r['coll_bytes_per_dev']:.4e} {r['coll_by_type']}; roofline at "
+              f"H100 SXM constants: compute {r['compute_s']:.4f} s, memory {r['memory_s']:.4f} "
+              f"s, collective {r['collective_s']:.4f} s -> {r['bottleneck']}-bound; "
+              f"useful_flops_ratio {r['useful_flops_ratio']:.4f}")
+    print(f"dryrun: {len(recs)} records in {DRY_OUT.relative_to(ROOT)}; card {smi}")
+    return recs
+
+
+def _mesh_inputs(cfg, seed: int, b: int, s: int):
+    import torch
+
+    from repro_torch.models import build
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    plain = build(cfg).init(gen, device="cuda")
+    toks = torch.randint(2, cfg.vocab_size, (b, s + 1), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    return plain, toks
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def mesh_nccl_rank(rank: int, device, seed: int) -> dict:
+    """Phase 9b in a world of one nccl rank: the (1, 1) mesh Model's
+    prefill against the unsharded model's, qwen3-0.6b (K5) and one
+    zamba2-7b group (K6)."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.sharding import activations as act
+
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    hy = get_config(HY_ARCH)
+    out = {}
+    for name, cfg in (("qwen3", get_config(LM_ARCH)),
+                      ("zamba2", dataclasses.replace(hy, n_layers=hy.attn_every))):
+        plain, toks = _mesh_inputs(cfg, seed, MESH_BATCH, MESH_SEQ)
+        batch = {"tokens": toks[:, :-1]}
+        plain.prefill(batch, MESH_SEQ)
+        reset_counts()
+        (want, _), plain_ms = _timed(lambda: plain.prefill(batch, MESH_SEQ))
+        plain_counts = launch_counts()
+        model = build(cfg, act_axes=("data",), mesh=mesh)
+        model.load_params(plain.master_params(), device="cuda")
+        model.prefill(batch, MESH_SEQ)  # the mesh path's first call (DTensor's caches)
+        reset_counts()
+        (got, _), mesh_ms = _timed(lambda: model.prefill(batch, MESH_SEQ))
+        out[name] = {"logits": want.cpu(), "equal": torch.equal(act.full(got), want),
+                     "plain_counts": plain_counts, "counts": launch_counts(),
+                     "plain_ms": plain_ms, "mesh_ms": mesh_ms}
+        del plain, model, want, got
+    return out
+
+
+def mesh_gloo_rank(rank: int, device, seed: int) -> dict:
+    """Phase 9c on one of two gloo ranks sharing the card: qwen3-0.6b's
+    prefill on a (1, 2) and a (2, 1) mesh (each rank's local shard of the
+    logits comes back), then one AdamW step on (2, 1) against the
+    one-process step in the same rank (MESH_GLOO_RULES)."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.models import params as pr
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.sharding import activations as act
+    from repro_torch.training import TrainState, make_train_step
+    from repro_torch.training.trainer import clone_tree
+
+    cfg = get_config(LM_ARCH)
+    plain, toks = _mesh_inputs(cfg, seed, MESH_BATCH, MESH_SEQ)
+    batch = {"tokens": toks[:, :-1]}
+    out: dict = {"prefill": {}}
+    for shape, rules_name in MESH_GLOO_RULES.items():
+        mesh = init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
+        model = build(cfg, act_axes=("data",), mesh=mesh).place_params(rules_name)
+        model.load_params(plain.master_params(), device="cuda")
+        model.prefill(batch, MESH_SEQ)
+        reset_counts()
+        (got, _), ms = _timed(lambda: model.prefill(batch, MESH_SEQ))
+        out["prefill"][shape] = {"local": got.to_local().cpu(), "placements": str(got.placements),
+                                 "ms": ms, "counts": launch_counts()}
+        del model
+    del plain
+
+    # One AdamW step of a 2-layer qwen3 on (2, 1).
+    cfg2 = dataclasses.replace(cfg, n_layers=MESH_TRAIN_LAYERS)
+    plain, toks = _mesh_inputs(cfg2, seed + 1, TR_SMALL_BATCH, TR_SEQ)
+    tb = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    opt = adamw(AdamWConfig(lr=TR_LR))
+    p0 = plain.master_params()
+    before = TrainState(p0, opt.init(p0))
+    want_state, want_m = make_train_step(plain, opt)(clone_tree(before), tb)
+    mesh = init_device_mesh("cuda", (2, 1), mesh_dim_names=("data", "model"))
+    model = build(cfg2, act_axes=("data",), mesh=mesh).place_params(MESH_GLOO_RULES[(2, 1)])
+    pm = model.distribute_params(plain.master_params())
+    reset_counts()
+    (state, m), step_ms = _timed(lambda: make_train_step(model, opt)(
+        TrainState(pm, opt.init(pm)), tb))
+
+    def full_tree(tree):
+        return pr.unflatten((path, act.full(t)) for path, t in pr.flatten(tree))
+
+    def clipped(st):   # the first step's m = (1 - b1) g_clipped
+        return {p: m / (1 - AdamWConfig.b1) for p, m in pr.flatten(st.opt.m)}
+
+    def update(st):
+        return {p: w - w0 for (p, w), (_, w0) in zip(pr.flatten(st.params),
+                                                     pr.flatten(before.params))}
+
+    got_state = TrainState(full_tree(state.params), type(state.opt)(
+        act.full(state.opt.step), full_tree(state.opt.m), full_tree(state.opt.v)))
+    g_got, g_want = clipped(got_state), clipped(want_state)
+    u_got, u_want = update(got_state), update(want_state)
+    flips = {}
+    for path, gw in g_want.items():
+        settled = gw.abs() > TRAIN_MICRO_REL * gw.abs().max()
+        du = (u_got[path] - u_want[path]).abs()
+        flips[".".join(path)] = (float(du.max()),
+                                 float(du[settled].max() / u_want[path].abs().max())
+                                 if settled.any() else 0.0,
+                                 float((du > MESH_FLIP / 2).float().mean()))
+    out["train"] = {
+        "loss": (float(act.full(m["loss"])), float(want_m["loss"])), "ms": step_ms,
+        "counts": launch_counts(),
+        "grad_gaps": grad_gaps(pr.unflatten(g_got.items()), pr.unflatten(g_want.items())),
+        "update": flips}
+    return out
+
+
+def mesh_phase(gen, smi: str) -> dict[str, int]:
+    """Phase 9. Returns K5's and K6's launches in the mesh runs (per rank,
+    summed over the ranks)."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    dry_procs = start_dryrun()
+    atexit.register(lambda: [p.kill() for p in dry_procs.values() if p.poll() is None])
+    launches = {"flash_attention": 0, "ssd_chunks": 0}
+
+    # K5 at the (1, 2) mesh's per-rank shape (8 of 16 q heads over 4 of 8
+    # KV heads), which no other phase checks element by element.
+    row = flash_row(gen, MESH_BATCH, MESH_SEQ, 8, 4, 128, torch.bfloat16, True)
+    print_kernel_rows({f"{row.pop('name')} (the (1, 2) mesh's local shard)": row})
+
+    # b. One nccl rank, a (1, 1) mesh.
+    (one,) = mesh_lib.spawn_world(mesh_nccl_rank, 1, backend="nccl", device="cuda",
+                                  args=(MESH_SEED,), timeout_s=900.0).check()
+    for name, kernel in (("qwen3", "flash_attention"), ("zamba2", "ssd_chunks")):
+        r = one[name]
+        print(f"mesh b ({name}, one nccl rank, (1, 1) mesh): prefill {MESH_BATCH} x {MESH_SEQ} "
+              f"{r['mesh_ms']:.1f} ms on the mesh against {r['plain_ms']:.1f} ms unsharded; "
+              f"logits {'bit-equal' if r['equal'] else 'DIFFERENT'}; launches mesh "
+              f"{r['counts']}, unsharded {r['plain_counts']}; card {smi}")
+        if not r["equal"]:
+            fail(f"mesh b: the (1, 1) mesh's {name} logits differ from the unsharded ones")
+        if r["counts"][kernel] != r["plain_counts"][kernel] or r["counts"][kernel] == 0:
+            fail(f"mesh b: {kernel} launched {r['counts'][kernel]} times on the mesh, "
+                 f"{r['plain_counts'][kernel]} unsharded")
+        launches[kernel] += r["counts"][kernel]
+
+    # c. Two gloo ranks on cuda:0.
+    t0 = time.perf_counter()
+    ranks = mesh_lib.spawn_world(mesh_gloo_rank, 2, backend="gloo", device="cuda",
+                                 args=(MESH_SEED,), timeout_s=900.0).check()
+    print(f"mesh c: a world of two gloo ranks on cuda:0 in {time.perf_counter() - t0:.1f} s")
+    want = one["qwen3"]["logits"]
+    for shape, rules_name in MESH_GLOO_RULES.items():
+        # (1, 2): the vocabulary split over 'model'; (2, 1): the rows over 'data'.
+        got = torch.cat([res["prefill"][shape]["local"] for res in ranks],
+                        dim=2 if shape == (1, 2) else 0)
+        gap = float((got - want).abs().max())
+        for rank, res in enumerate(ranks):
+            r = res["prefill"][shape]
+            k5 = r["counts"]["flash_attention"]
+            print(f"mesh c: rank {rank}, {shape} mesh ({rules_name} rules): prefill "
+                  f"{r['ms']:.1f} ms, logits {r['placements']} local {tuple(r['local'].shape)}, "
+                  f"K5 launches {k5}; card {smi}")
+            if k5 != 28:
+                fail(f"mesh c: K5 launched {k5} times on rank {rank}'s {shape} prefill")
+            launches["flash_attention"] += k5
+        print(f"mesh c: {shape} mesh: the ranks' logits within {gap:.4f} of the (1, 1) "
+              f"mesh's (tol {LM_LOGIT_TOL})")
+        if not gap <= LM_LOGIT_TOL:
+            fail(f"mesh c: {shape} logits differ by {gap}")
+    for rank, res in enumerate(ranks):
+        tr = res["train"]
+        got, want = tr["loss"]
+        print(f"mesh c: rank {rank}, {MESH_GLOO_RULES[(2, 1)]} AdamW step on (2, 1) "
+              f"({MESH_TRAIN_LAYERS} layers, batch "
+              f"{TR_SMALL_BATCH} x {TR_SEQ}): {tr['ms']:.1f} ms, loss {got:.6f} against "
+              f"{want:.6f} in one process (tol {bf16_ulp(want)}), launches {tr['counts']}")
+        if not abs(got - want) <= bf16_ulp(want):
+            fail(f"mesh c: the mesh step's loss {got} against {want}")
+        if tr["counts"]["flash_attention"] or tr["counts"]["ssd_chunks"]:
+            fail(f"mesh c: a kernel launched in the train step: {tr['counts']}")
+        check_gaps(f"mesh c rank {rank} (clipped gradient, (2, 1) against one process)",
+                   tr["grad_gaps"], TRAIN_MICRO_REL, None)
+        upd = tr["update"]
+        worst = max(upd.items(), key=lambda kv: kv[1][0])
+        worst_settled = max(upd.items(), key=lambda kv: kv[1][1])
+        print(f"mesh c rank {rank} (update): largest element gap {worst[1][0]:.4e} "
+              f"({worst[0]}; tol {MESH_FLIP:.4e}, a flipped sign), largest gap where the sign "
+              f"is settled {worst_settled[1][1]:.4e} of the leaf's update "
+              f"({worst_settled[0]}; tol {TRAIN_MICRO_REL:.4g}); flipped share per leaf up to "
+              f"{max(v[2] for v in upd.values()):.4e}")
+        for key, (most, settled, _) in upd.items():
+            if not most <= MESH_FLIP or not settled <= TRAIN_MICRO_REL:
+                fail(f"mesh c: the update of {key} differs by {most} ({settled} where settled)")
+
+    # a. The dry run.
+    dryrun_records(dry_procs, smi)
+    print(f"phase 9 (the mesh and dry-run tools): {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4277,6 +4631,10 @@ def main() -> int:
     # Phase 8.
     ssd_rows, launches["ssd_chunks"] = hybrid_phase(gen)
     rows.update(ssd_rows)
+
+    # Phase 9.
+    for k, n in mesh_phase(gen, smi).items():
+        launches[k] += n
 
     sources = {"forest": "forest.cu", "wpd_level": "wpd_level.cu", "gram": "gram.cu",
                "histogram": "histogram.cu", "flash_attention": "flash_attention.cu",

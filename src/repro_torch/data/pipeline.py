@@ -18,6 +18,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.data.synthetic import make_batch
 from repro_torch.device import resolve_device
+from repro_torch.sharding import rules
 
 
 @dataclasses.dataclass
@@ -29,22 +30,27 @@ class DataState:
 class BatchStream:
     """Deterministic synthetic stream: ``stream.batch_at(i)`` is stable
     across processes and restarts. Batches land on ``device`` (the card
-    by default)."""
+    by default). With ``shardings = (mesh, specs)`` (a ``DeviceMesh`` and
+    a tree of partition specs, e.g. ``sharding.rules.batch_pspecs``) each
+    batch is placed as DTensors (``rules.distribute``): every rank draws the
+    same global batch and keeps its own rows, with no communication (the
+    reference's ``jax.device_put`` with shardings)."""
 
     def __init__(self, cfg: ArchConfig, shape: InputShape, seed: int = 0,
                  shardings: Any | None = None, device: torch.device | str | None = None):
-        if shardings is not None:
-            raise NotImplementedError(
-                'sharded batches wait for the mesh (ROADMAP.md queue 1, "Mesh and '
-                'dry-run tools")')
         self.cfg = cfg
         self.shape = shape
         self.state = DataState(seed=seed)
+        self.shardings = shardings
         self.device = resolve_device(device)
 
     def batch_at(self, step: int) -> dict:
         gen = torch.Generator().manual_seed(self.state.seed * 1_000_003 + step)
-        return make_batch(self.cfg, self.shape, gen, self.device)
+        batch = make_batch(self.cfg, self.shape, gen, self.device)
+        if self.shardings is not None:
+            mesh, specs = self.shardings
+            batch = rules.distribute(batch, mesh, specs)
+        return batch
 
     def __iter__(self) -> Iterator[dict]:
         while True:

@@ -1,6 +1,10 @@
-"""Process worlds and device meshes for the port's MapReduce mesh mode:
-the counterpart of ``repro.launch.mesh.make_host_mesh`` over
-``torch.distributed``.
+"""Process worlds and device meshes: the counterpart of
+``repro.launch.mesh`` over ``torch.distributed``.
+
+``make_production_mesh`` builds the dry run's 16x16 or 2x16x16
+``DeviceMesh`` on a fake world (no process, no card; see
+``launch.dryrun``), and the module's constants are the roofline's
+hardware model, the NVIDIA H100 SXM's.
 
 A world is one process per map task (a rank) on this host.
 ``spawn_world(fn, n_ranks, backend=...)`` starts the ranks from a fresh
@@ -27,6 +31,7 @@ The map always runs on the rank's device.
 from __future__ import annotations
 
 import datetime
+import math
 import multiprocessing
 import os
 import pickle
@@ -42,6 +47,51 @@ BACKENDS = ("nccl", "gloo")
 _HOST = "127.0.0.1"
 # Seconds the other ranks get to finish once one has failed.
 _GRACE_S = 30.0
+
+
+# Hardware constants for the roofline: the NVIDIA H100 SXM5 80GB, per card.
+# Dense bf16 tensor-core peak, without sparsity (H100 data sheet: 1979
+# TFLOPS is the 2:4-sparse figure).
+PEAK_FLOPS_BF16 = 989e12
+# HBM3 bandwidth (H100 SXM5 data sheet: 3.35 TB/s).
+HBM_BW = 3.35e12
+# HBM capacity (80 GB).
+HBM_BYTES = 80e9
+# The collective model's one link rate, bytes/s per card. A 16-wide mesh
+# axis spans two 8-card nodes, so its ring crosses the inter-node network:
+# one NDR InfiniBand port of 400 Gb/s per GPU (DGX H100 reference
+# architecture) = 50e9 B/s. (NVLink inside a node, 450 GB/s a direction,
+# is not the limit of such a ring.)
+INTER_NODE_BW = 50e9
+
+
+def make_fake_mesh(shape: tuple[int, ...], names: tuple[str, ...]):
+    """A CPU ``DeviceMesh`` of ``shape`` over a fake world
+    (``backend="fake"``: one process stands for every rank, and collectives
+    return without moving data, so tensors under ``FakeTensorMode`` trace
+    a step as rank 0 of the mesh). The world is initialized here when none
+    is; an initialized world of another size raises."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = math.prod(shape)
+    if not dist.is_initialized():
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    if dist.get_world_size() != n:
+        raise RuntimeError(f"mesh {shape} needs a world of {n} ranks; the initialized world "
+                           f"has {dist.get_world_size()}")
+    return init_device_mesh("cpu", shape, mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production ``DeviceMesh`` on a fake world (``make_fake_mesh``):
+    (16, 16) over ("data", "model") or, with ``multi_pod``, (2, 16, 16) over
+    ("pod", "data", "model") -- the reference's shapes and axis names, so
+    the sharding rules compare one for one with the JAX package's."""
+    if multi_pod:
+        return make_fake_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_fake_mesh((16, 16), ("data", "model"))
 
 
 def make_host_mesh(data: int = 1, model: int = 1, *, device_type: str = "cuda"):
@@ -226,4 +276,5 @@ def spawn_world(
     return WorldResult(out, errors)
 
 
-__all__ = ["BACKENDS", "WorldResult", "make_host_mesh", "spawn_world"]
+__all__ = ["BACKENDS", "HBM_BW", "HBM_BYTES", "INTER_NODE_BW", "PEAK_FLOPS_BF16", "WorldResult",
+           "make_fake_mesh", "make_host_mesh", "make_production_mesh", "spawn_world"]

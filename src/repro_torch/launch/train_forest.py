@@ -28,8 +28,10 @@ share a card, or CPU ranks with ``--device cpu``:
       --train-chunks 4 --hours-interictal 0
 
 The exit code is 1 if any rank fails or any check fails. The reference
-also counts recompiles across the swap; the port runs eagerly and has no
-compile budget yet (ROADMAP.md queue 1, "Static checks for the port").
+also counts recompiles across the swap; the port runs eagerly, captures
+no step and so has no recompile budget yet (the last module of the
+reference without a counterpart: ROADMAP.md queue 1, "Static checks for
+the port").
 """
 
 from __future__ import annotations

@@ -8,6 +8,9 @@ and get from it:
     ``torch.Generator``, with the reference's laws: ``normal`` is
     N(0, 1) x 1/sqrt(fan_in) (or the spec's scale; embed uses 1.0),
     ``small`` N(0, 1) x 0.02, ``ones`` and ``zeros`` constant;
+  * ``shape_tree(specs)`` -- float32 tensors of the right shapes with no
+    storage (meta tensors; fake tensors under ``FakeTensorMode``), for
+    the sharding rules and the dry run;
   * ``param_count(specs)``;
   * the path structure (``flatten``) the model registers as its
     ``nn.Module`` tree, so a state dict key is the reference's path
@@ -100,6 +103,15 @@ def init_params(specs: dict, generator: torch.Generator, device: torch.device) -
         return (draw.mul_(scale)).to(device)
 
     return unflatten((path, one(spec)) for path, spec in flatten(specs))
+
+
+def shape_tree(specs: dict, device: torch.device | str = "meta") -> dict:
+    """Float32 tensors of the specs' shapes that allocate nothing: on the
+    meta device by default, or on ``device`` under an active
+    ``FakeTensorMode`` (the dry run's fake host tensors). Outside such a
+    mode a real device allocates."""
+    return unflatten((path, torch.empty(s.shape, dtype=torch.float32, device=device))
+                     for path, s in flatten(specs))
 
 
 def param_count(specs: dict) -> int:

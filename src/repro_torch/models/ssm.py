@@ -89,9 +89,10 @@ def _ssm_inner(cfg: ArchConfig, p: Params, x, bmat, cmat, dt_raw, *, initial_sta
     C once per batch row, v and y as (B, S, H, P)) with the log-decay
     rounded to the activations' type (the reference's cast); otherwise the
     plain chunked core with float32 log-decay."""
-    d_ssm, h, n, _ = _dims(cfg)
-    b_, s, _ = x.shape
+    n = cfg.ssm_state
+    b_, s, d_x = x.shape
     pdim = cfg.ssm_head_dim
+    h = d_x // pdim  # the heads x holds (a model rank's share on a mesh)
     xh = x.reshape(b_, s, h, pdim)
     dt = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"])         # (B,S,H)
     a = -torch.exp(p["A_log"].to(torch.float32))                     # (H,)
@@ -109,14 +110,32 @@ def _ssm_inner(cfg: ArchConfig, p: Params, x, bmat, cmat, dt_raw, *, initial_sta
         y, state = scan_core.chunked_linear_attention(
             q, k, v, log_decay, chunk=chunk, initial_state=initial_state)
     y = y + xh * p["D"].to(x.dtype)[None, None, :, None]
-    return y.reshape(b_, s, d_ssm), state
+    return y.reshape(b_, s, d_x), state
 
 
-def mamba2_apply(cfg: ArchConfig, p: Params, u: torch.Tensor, return_cache: bool = False):
+def _ssm_inner_on_mesh(cfg: ArchConfig, sh, p: Params, x, bmat, cmat, dt_raw):
+    """``_ssm_inner`` on each rank's local shard: rows over the batch axes,
+    SSD heads over 'model' where their count divides it (x, dt and the
+    per-head parameters split alike; B and C whole), so K6 takes plain
+    local tensors. Returns DTensors y (B,S,d_ssm) and state (B,H,N,P)."""
+    be, hh = sh.batch(x.shape[0]), sh.heads(cfg.n_ssm_heads)
+
+    def inner(xl, bl, cl, dl, a_log, dt_bias, d_skip):
+        return _ssm_inner(cfg, {"A_log": a_log, "dt_bias": dt_bias, "D": d_skip},
+                          xl, bl, cl, dl)
+
+    return sh.local(inner, (x, bmat, cmat, dt_raw, p["A_log"], p["dt_bias"], p["D"]),
+                    [(be, None, hh), (be,), (be,), (be, None, hh), (hh,), (hh,), (hh,)],
+                    ((be, None, hh), (be, hh)))
+
+
+def mamba2_apply(cfg: ArchConfig, p: Params, u: torch.Tensor, return_cache: bool = False,
+                 sh=None):
     """Full-sequence residual block. u: (B, S, d_model).
 
     With ``return_cache`` also returns the decode cache after the last
-    position (prefill): conv tail + final SSM state."""
+    position (prefill): conv tail + final SSM state. On a mesh (``sh``)
+    the SSD core runs on local shards (``_ssm_inner_on_mesh``)."""
     dt = u.dtype
     xin = rmsnorm(p["ln"], u)
     proj = xin @ p["in_proj"].to(dt)
@@ -125,9 +144,14 @@ def mamba2_apply(cfg: ArchConfig, p: Params, u: torch.Tensor, return_cache: bool
     xbc = F.silu(_conv_full(xbc_raw, p["conv_w"], p["conv_b"]))
     d_ssm, _, n, _ = _dims(cfg)
     x, bmat, cmat = torch.split(xbc, [d_ssm, n, n], dim=-1)
-    y, state = _ssm_inner(cfg, p, x, bmat, cmat, dtr)
+    if sh is None:
+        y, state = _ssm_inner(cfg, p, x, bmat, cmat, dtr)
+    else:
+        y, state = _ssm_inner_on_mesh(cfg, sh, p, x, bmat, cmat, dtr)
     y = rmsnorm(p["out_norm"], y * F.silu(z))
     out = u + y @ p["out_proj"].to(dt)
+    if sh is not None:
+        out = sh.resid(out)
     if not return_cache:
         return out
     # A copy, so that a prefill's cache does not hold every block's xbc_raw.

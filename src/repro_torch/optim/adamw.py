@@ -1,6 +1,10 @@
 """AdamW with global-norm clipping, decoupled weight decay and schedule
 support (twin of the JAX package's ``optim/adamw.py``).
 
+Trees may hold DTensors (a mesh Model's parameters): the moments are
+placed as their parameters, and the update runs under implicit
+replication (``sharding.activations.replication``).
+
 Trees are nested dicts of tensors (the model's parameter paths). The
 moments m and v are float32. ``update`` returns the reference's
 ``(updates, state)`` pair, but writes m, v and the step counter IN PLACE:
@@ -20,6 +24,7 @@ import torch
 
 from repro_torch.models import params as pr
 from repro_torch.models.model import TensorSpec
+from repro_torch.sharding.activations import replication
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,13 +66,18 @@ def adamw(cfg: AdamWConfig, schedule: Callable | None = None) -> Optimizer:
 
     def init(params):
         def zeros(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            # zeros_like: a DTensor parameter's moments are placed as it is
+            return torch.zeros_like(p, dtype=torch.float32)
 
         dev = pr.flatten(params)[0][1].device
         return AdamWState(torch.zeros((), dtype=torch.int32, device=dev),
                           _map(zeros, params), _map(zeros, params))
 
     def update(grads, state, params):
+        with replication(params):
+            return _update(grads, state, params)
+
+    def _update(grads, state, params):
         step = state.step.add_(1)
         gn = global_norm(grads)
         scale = torch.clamp(cfg.clip_norm / (gn + 1e-9), max=1.0)

@@ -2,8 +2,10 @@
 ``MapReduce.run``, ``shuffle_by_key``, ``fit_mapreduce(mesh=)``,
 ``global_moments``, ``pipeline.fit(mesh=)``,
 ``process_recording_mapreduce``, ``DistributedEnsemble``, the launcher's
-``--devices`` and ``SeizureEngine(mesh=)``, against their emulations (the
-unsharded engine) and the JAX package.
+``--devices``, ``SeizureEngine(mesh=)``, the mesh Model (reduced dense and
+moe configs on (1, 2) and (2, 1) meshes), ``BatchStream(shardings=)`` and
+the LM ensemble over ranks, against their emulations (the unsharded
+engine and model) and the JAX package.
 
 One world of two gloo CPU ranks (``launch.mesh.spawn_world``) runs every
 case once for the whole file (``tests/torch_dist_ranks.py``, which
@@ -24,6 +26,9 @@ Tolerances:
   * the mesh engine against the unsharded engine in the same rank (one
     intra-op thread each): every event field, ``preictal_frac`` and the
     window predictions included, bit for bit.
+  * the mesh Model against the unsharded one: LM_MESH_TOL (1e-5) on
+    float32 logits; one train step as ``test_mesh_train_step_equals_
+    unsharded`` states; the batch stream and the LM ensemble bit for bit.
 """
 
 from __future__ import annotations
@@ -334,6 +339,98 @@ def test_mesh_engine_score_chunks_and_indivisible_batches(world):
             assert g.shape[0] == 2 and torch.equal(g, w)
         assert "not divisible by mesh data axis 2" in out["max_batch_error"]
         assert "does not split over mesh data axis 2" in out["score_chunks_error"]
+
+
+# ---------------------------------------------------------------------------
+# The mesh Model (sharding rules as DTensor placements), BatchStream,
+# the ensemble over ranks
+# ---------------------------------------------------------------------------
+
+# float32 logits of a reduced model: the mesh sums tensor-parallel partials
+# and splits the softmax's reductions across ranks, in another order than
+# one process: a few ulps of O(1) values.
+LM_MESH_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ranks.LM_ARCHS)
+@pytest.mark.parametrize("shape", ranks.LM_MESHES)
+def test_mesh_model_equals_unsharded(world, arch, shape):
+    """Forward logits of a reduced dense and moe model on a (1, 2) mesh
+    (tensor parallel: half the heads and experts a rank) and a (2, 1) mesh
+    (rows over 'data') against the unsharded model, on every rank; for the
+    dense model on (1, 2) also a prefill's last logits and one decode step
+    (its one KV head leaves the cache's sequence split over 'model', so
+    each rank writes and reads its shard and the softmax is split)."""
+    for rank in range(N):
+        case = world[rank]["lm_mesh"][f"{arch} {shape}"]
+        for what in ("forward", "prefill", "decode"):
+            if what not in case:
+                assert (arch, shape) != (ranks.LM_ARCHS[0], (1, 2))
+                continue
+            got, want = case[what]
+            np.testing.assert_allclose(got.numpy(), want.numpy(), err_msg=what, **LM_MESH_TOL)
+        assert case["local_rows"][0] == 4 // shape[0]
+
+
+def test_context_parallel_and_seq_shard_equal_unsharded(world):
+    """``build(context_parallel=True, seq_shard=True)`` on a (1, 2) mesh:
+    the chunked attention's two query chunks of S = 2048 split over the
+    model ranks, the residual stream's sequence split between blocks; the
+    logits within LM_MESH_TOL of the unsharded model's."""
+    for rank in range(N):
+        got, want = world[rank]["lm_mesh"]["context_parallel"]
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **LM_MESH_TOL)
+
+
+def test_mesh_train_step_equals_unsharded(world):
+    """One AdamW step (2 microbatches) under the fsdp rules on a (2, 1)
+    mesh against the unsharded step. The loss within 1e-6 relative. The
+    clipped gradients (the first step's m / (1 - b1)), which carry the
+    FSDP gathers' reduce-scatters, leaf by leaf within 1e-5 of the leaf's
+    largest |g|: float32 sums of the same rows in another order (the worst
+    leaf measured 2.5e-7 of its scale, blocks.attn.wk). The
+    parameters: AdamW's first update is lr x sign(g) wherever |g| >> eps,
+    so a gradient within rounding of 0 may take the other sign: every
+    element within 2 lr of the unsharded step, and all but 1% of each
+    leaf's within 1e-6."""
+    for rank in range(N):
+        case = world[rank]["lm_mesh"]["train"]
+        got, want = case["loss"]
+        assert float(got) == pytest.approx(float(want), rel=1e-6)
+        assert "Shard(dim=0)" in case["placements"]
+        for name, (g, w) in case["grads"].items():
+            scale = float(w.abs().max())
+            assert scale > 0, name
+            assert float((g - w).abs().max()) <= 1e-5 * scale, name
+        for name, (g, w) in case["params"].items():
+            diff = (g - w).abs()
+            assert float(diff.max()) <= 2 * ranks.LM_LR + 1e-6, name
+            assert float((diff > 1e-6).float().mean()) <= 0.01, name
+
+
+def test_batch_stream_shardings(world):
+    """``BatchStream(shardings=(mesh, batch_pspecs))``: each rank holds its
+    rows of the same draw, bit for bit."""
+    for rank in range(N):
+        for name, (got, want) in world[rank]["lm_mesh"]["stream"].items():
+            assert torch.equal(got, want), name
+
+
+def test_ensemble_step_over_two_ranks_equals_one_process(world):
+    """``ensemble_init(mesh=)`` draws each rank's member as the one-process
+    ensemble draws it (``shard_generators``, ``fit_local``'s draw), and
+    ``make_ensemble_train_step(mesh=)`` steps it as the one-process step
+    does: members, losses and steps bit for bit."""
+    for rank in range(N):
+        case = world[rank]["lm_ensemble"]
+        for group in ("drawn", "stepped"):
+            for name, (got, want) in case[group].items():
+                assert torch.equal(got, want), (group, name)
+        for what in ("loss", "step"):
+            got, want = case[what]
+            assert torch.equal(got, want), what
+    assert not torch.equal(world[0]["lm_ensemble"]["drawn"]["embed"][0],
+                           world[1]["lm_ensemble"]["drawn"]["embed"][0])
 
 
 # ---------------------------------------------------------------------------

@@ -426,10 +426,15 @@ def test_entry_points_default_to_cuda(pairs, monkeypatch, capsys):
 
 
 def test_unported_parts_raise():
-    """The mesh fields still raise. The four families that raised here until
-    they were ported now build and run a reduced forward on the CPU (each is
-    held to the reference in tests/test_torch_moe.py and
-    tests/test_torch_families.py)."""
+    """Nothing here raises any more (the name is the old pin's). The four
+    families that raised here until they were ported build and run a
+    reduced forward on the CPU (each is held to the reference in
+    tests/test_torch_moe.py and tests/test_torch_families.py), and the mesh
+    fields that raised until they were ported build a mesh Model: on a (1, 1)
+    mesh (a fake world of one rank) one with ``seq_shard`` and
+    ``context_parallel`` gives the unsharded logits (1e-6). (With one model
+    rank both are inert; tests/test_torch_distributed.py splits a chunked
+    sequence over two.)"""
     rng = np.random.default_rng(7)
     for arch in ("qwen3-moe-30b-a3b", "xlstm-1.3b", "hubert-xlarge", "paligemma-3b"):
         cfg = get_config(arch).reduced()
@@ -447,7 +452,23 @@ def test_unported_parts_raise():
         logits, aux = model.forward(batch)
         assert logits.shape == (2, s, cfg.vocab_size)
         assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(get_config("qwen3-0.6b").reduced(), seq_shard=True)
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_fake_mesh
+    from repro_torch.sharding import activations as act
+
+    cfg = get_config("qwen3-0.6b").reduced()
+    plain = build(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    batch = {"tokens": torch.from_numpy(_tokens(rng, cfg, 2, 64))}
+    want, _ = plain.forward(batch)
+    mesh = make_fake_mesh((1, 1), ("data", "model"))
+    try:
+        model = build(cfg, act_axes=("data",), mesh=mesh, seq_shard=True,
+                      context_parallel=True)
+        model.load_params(plain.master_params(), device="cpu")
+        got, _ = model.forward(batch)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(act.full(got).numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
     assert for_shape(get_config("qwen3-0.6b"), "long_500k").attention == "sliding"
     assert for_shape(get_config("qwen3-0.6b"), "decode_32k").attention == "full"

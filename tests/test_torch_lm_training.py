@@ -395,10 +395,30 @@ def test_ensemble_members_train_apart(dense):
                                   pr.flatten(singles[m].params)):
             assert torch.equal(a, b)
     assert states.opt.step.tolist() == [1, 1]
-    with pytest.raises(NotImplementedError, match="Mesh and dry-run tools"):
-        trainer.make_ensemble_train_step(model, opt, type("M", (), {"size": lambda s: 2})(), 2)
-    with pytest.raises(NotImplementedError, match="Mesh and dry-run tools"):
-        trainer.ensemble_member_pspecs({})
+    # The member axis rides 'data' (the ensemble over two ranks steps its
+    # members in tests/torch_dist_ranks.py): the member specs equal the
+    # reference's on the qwen3 parameter specs of the production mesh.
+    from jax.sharding import PartitionSpec as P
+
+    from conftest import abstract_mesh
+    from repro.sharding import rules as jrules
+    from repro.training import trainer as jtrainer
+    from repro_torch.sharding import rules
+
+    jcfg = jget_config("qwen3-0.6b")
+    jspecs = jrules.param_pspecs(jcfg, abstract_mesh((16, 16), ("data", "model")),
+                                 jbuild(jcfg).param_shapes())
+    want = jax.tree_util.tree_flatten_with_path(
+        jtrainer.ensemble_member_pspecs(jspecs), is_leaf=lambda x: isinstance(x, P))[0]
+    cfg = get_config("qwen3-0.6b")
+    got = dict(pr.flatten(trainer.ensemble_member_pspecs(rules.param_pspecs(
+        cfg, {"data": 16, "model": 16}, build(cfg).param_shapes()))))
+    assert len(got) == len(want)
+    for path, spec in want:
+        assert got[tuple(p.key for p in path)] == tuple(spec)
+    with pytest.raises(ValueError, match="other than 'data'"):
+        trainer.make_ensemble_train_step(model, opt, type("M", (), {
+            "mesh_dim_names": ("data", "model"), "shape": (1, 2)})(), 2)
 
 
 # ---------------------------------------------------------------------------
@@ -436,8 +456,23 @@ def test_batches_follow_the_reference():
     pali = synthetic.make_batch(get_config("paligemma-3b"), InputShape("t", 264, 1, "train"),
                                 torch.Generator())
     assert pali["patches"].shape == (1, 256, 2048) and pali["tokens"].shape == (1, 8)
-    with pytest.raises(NotImplementedError, match="Mesh and dry-run tools"):
-        pipeline.BatchStream(cfg, InputShape("t", 8, 1, "train"), shardings={}, device="cpu")
+    # Placed by batch_pspecs on a (1, 1) mesh (a fake world of one rank):
+    # DTensors holding the same batch (the two-rank stream is in
+    # tests/torch_dist_ranks.py).
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_fake_mesh
+    from repro_torch.sharding import rules
+
+    mesh = make_fake_mesh((1, 1), ("data", "model"))
+    try:
+        specs = rules.batch_pspecs(cfg, mesh, b)
+        placed = pipeline.BatchStream(cfg, InputShape("t", 256, 4, "train"), seed=3,
+                                      shardings=(mesh, specs), device="cpu").batch_at(0)
+        assert all(placed[k].placements == tuple(rules.named(mesh, specs[k])) for k in b)
+        assert all(torch.equal(placed[k].full_tensor(), b[k]) for k in b)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_train_checkpoint_crosses_packages(dense, tmp_path):

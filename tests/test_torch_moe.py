@@ -33,6 +33,7 @@ from repro.serving.continuous import Request as JRequest
 from repro.serving.engine import ServeEngine as JServeEngine
 from repro_torch import convert
 from repro_torch.models import moe
+from repro_torch.models import params as pr
 from repro_torch.serving.continuous import ContinuousEngine, Request
 from repro_torch.serving.engine import ServeEngine
 from torch_family_pairs import (
@@ -170,8 +171,70 @@ def test_continuous_engine_matches_jax(pair):
 
 
 def test_moe_wg_still_raises():
-    from repro_torch.configs import get_config
-    from repro_torch.models import build
+    """The pin of ``build(moe_wg=True)``'s old raise, now its check (the
+    name is kept): on a (1, 1) mesh (a fake world of one rank, real
+    tensors) the hand-written expert VJP with its gradient placement gives
+    the loss and every gradient of ``moe_wg=False``, within GRAD_REL of
+    each leaf's scale, and both equal the unsharded model's loss."""
+    import torch.distributed as dist
 
-    with pytest.raises(NotImplementedError, match="Mesh and dry-run tools"):
-        build(get_config(ARCH).reduced(), moe_wg=True)
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_fake_mesh
+    from repro_torch.models import build
+    from repro_torch.sharding import activations as act
+    from repro_torch.training import trainer
+    from torch_family_pairs import GRAD_REL, close_scaled
+
+    cfg = get_config(ARCH).reduced()
+    plain = build(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(8)
+    toks = rng.integers(2, cfg.vocab_size, size=(2, 17)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1].copy()),
+             "targets": torch.from_numpy(toks[:, 1:].copy())}
+    want_loss, _ = plain.loss(plain.master_params(), batch)
+    out = {}
+    mesh = make_fake_mesh((1, 1), ("data", "model"))
+    try:
+        for wg in (False, True):
+            model = build(cfg, act_axes=("data",), mesh=mesh, moe_wg=wg)
+            assert (model._wg_constrain() is not None) == wg
+            params = model.distribute_params(plain.master_params())
+            (loss, _), grads = trainer.value_and_grad(model.loss, has_aux=True)(params, batch)
+            out[wg] = float(act.full(loss)), {p: act.full(g) for p, g in pr.flatten(grads)}
+    finally:
+        dist.destroy_process_group()
+    assert out[True][0] == pytest.approx(out[False][0], rel=1e-6)
+    assert out[False][0] == pytest.approx(float(want_loss), rel=1e-6)
+    for path, g in out[False][1].items():
+        close_scaled(out[True][1][path], g, GRAD_REL, ".".join(path))
+
+
+def test_expert_ffn_vjp_matches_jax(pair):
+    """``_expert_ffn`` through the hand-written VJP (identity
+    ``wg_constrain``) against the reference's ``custom_vjp`` path: the
+    output within LAYER_TOL, the gradients of the buffer and of the three
+    expert weights within GRAD_REL (1e-4) of each one's scale."""
+    from torch_family_pairs import GRAD_REL, close_scaled
+
+    cfg, jcfg = pair.cfg, pair.jcfg
+    rng = np.random.default_rng(9)
+    w = {k: v[0].numpy() for k, v in pair.model.master_params()["blocks"]["moe"].items()
+         if k in ("wi_gate", "wi_up", "wo")}
+    buf = rng.normal(size=(2, cfg.n_experts, 6, cfg.d_model)).astype(np.float32)
+    cot = rng.normal(size=buf.shape).astype(np.float32)
+
+    leaves = {k: torch.from_numpy(v).requires_grad_() for k, v in w.items()}
+    tbuf = torch.from_numpy(buf).requires_grad_()
+    y = moe._expert_ffn(cfg, leaves, tbuf, wg_constrain=lambda g: g)
+    grads = torch.autograd.grad((y * torch.from_numpy(cot)).sum(), [tbuf, *leaves.values()])
+
+    def jloss(b, ws):
+        out = jmoe._expert_ffn(jcfg, ws, b, wg_constrain=lambda g: g)
+        return jnp.sum(out * cot), out
+
+    (_, jy), (jgb, jgw) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(buf), {k: jnp.asarray(v) for k, v in w.items()})
+    close(y.detach(), jy, LAYER_TOL)
+    close_scaled(grads[0], jgb, GRAD_REL, "buf")
+    for g, name in zip(grads[1:], leaves):
+        close_scaled(g, jgw[name], GRAD_REL, name)

@@ -246,6 +246,129 @@ def _engine(mesh, rank: int, data: dict) -> dict:
     return out
 
 
+# The mesh Model's cases: reduced configs (float32) and the meshes they run on.
+LM_ARCHS = ("qwen3-0.6b", "qwen3-moe-30b-a3b")
+LM_MESHES = ((1, 2), (2, 1))
+LM_LR = 1e-3
+
+
+def _lm_batch(cfg, seed: int, b: int = 4, s: int = 16) -> dict:
+    toks = np.random.default_rng(seed).integers(2, cfg.vocab_size, size=(b, s + 1))
+    return {"tokens": _t(toks[:, :-1].astype(np.int32)),
+            "targets": _t(toks[:, 1:].astype(np.int32))}
+
+
+def _lm_mesh(rank: int, device: torch.device) -> dict:
+    """The mesh Model on meshes of this world's two ranks (every rank
+    builds the same unsharded model from a seed and the mesh Model from its
+    masters): forward logits (and, for the dense model on (1, 2), a prefill
+    and one decode step) against the unsharded model in the same rank; one fsdp
+    AdamW step on (2, 1) against the unsharded step;
+    ``BatchStream(shardings=)``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.data.pipeline import BatchStream
+    from repro_torch.models import build
+    from repro_torch.models import params as pr
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.sharding import activations as act
+    from repro_torch.sharding import rules
+    from repro_torch.training import trainer
+
+    out: dict = {}
+    for arch in LM_ARCHS:
+        cfg = get_config(arch).reduced()
+        plain = build(cfg).init(_gen(11), device=device.type)
+        batch = _lm_batch(cfg, 12)
+        step_tok = {"tokens": batch["targets"][:, -1:]}
+        want, _ = plain.forward({"tokens": batch["tokens"]})
+        serve = arch == LM_ARCHS[0]  # the cache paths: the dense model's, on (1, 2)
+        if serve:
+            wlast, wcache = plain.prefill({"tokens": batch["tokens"]}, 24)
+            wdec, _ = plain.decode_step(wcache, step_tok)
+        for shape in LM_MESHES:
+            mesh = init_device_mesh(device.type, shape, mesh_dim_names=("data", "model"))
+            model = build(cfg, act_axes=("data",), mesh=mesh)
+            model.load_params(plain.master_params(), device=device.type)
+            got, _ = model.forward({"tokens": batch["tokens"]})
+            case = {"forward": (act.full(got), want), "local_rows": tuple(got.to_local().shape)}
+            if serve and shape == (1, 2):  # heads split, the cache's sequence split
+                glast, gcache = model.prefill({"tokens": batch["tokens"]}, 24)
+                gdec, _ = model.decode_step(gcache, step_tok)
+                case |= {"prefill": (act.full(glast), wlast), "decode": (act.full(gdec), wdec)}
+            out[f"{arch} {shape}"] = case
+    # Context parallelism and the sequence-parallel residual stream on
+    # (1, 2): the dense model's chunked attention at S = 2048 (two query
+    # chunks of 1024, one a model rank).
+    cfg = get_config("qwen3-0.6b").reduced()
+    plain = build(cfg).init(_gen(11), device=device.type)
+    long = {"tokens": _lm_batch(cfg, 17, b=1, s=2048)["tokens"]}
+    want, _ = plain.forward(long, chunked_attn=True)
+    mesh = init_device_mesh(device.type, (1, 2), mesh_dim_names=("data", "model"))
+    model = build(cfg, act_axes=("data",), mesh=mesh, seq_shard=True, context_parallel=True)
+    model.load_params(plain.master_params(), device=device.type)
+    got, _ = model.forward(long, chunked_attn=True)
+    out["context_parallel"] = (act.full(got), want)
+    # One AdamW step, fsdp rules on (2, 1), against the unsharded step.
+    cfg = get_config("qwen3-0.6b").reduced()
+    plain = build(cfg).init(_gen(13), device=device.type)
+    batch = _lm_batch(cfg, 14)
+    opt = adamw(AdamWConfig(lr=LM_LR))
+    p0 = plain.master_params()
+    want_state, want_m = trainer.make_train_step(plain, opt, microbatches=2)(
+        trainer.TrainState(p0, opt.init(p0)), batch)
+    mesh = init_device_mesh(device.type, (2, 1), mesh_dim_names=("data", "model"))
+    model = build(cfg, act_axes=("data",), mesh=mesh).place_params("fsdp")
+    pm = model.distribute_params(plain.master_params())
+    got_state, got_m = trainer.make_train_step(model, opt, microbatches=2)(
+        trainer.TrainState(pm, opt.init(pm)), batch)
+    out["train"] = {
+        "loss": (act.full(got_m["loss"]), want_m["loss"]),
+        "params": {".".join(k): (act.full(g), w) for (k, g), (_, w) in
+                   zip(pr.flatten(got_state.params), pr.flatten(want_state.params))},
+        # A first step's m is (1 - b1) times the clipped gradient.
+        "grads": {".".join(k): (act.full(g) / (1 - AdamWConfig.b1), w / (1 - AdamWConfig.b1))
+                  for (k, g), (_, w) in zip(pr.flatten(got_state.opt.m),
+                                            pr.flatten(want_state.opt.m))},
+        "placements": str(got_state.params["unembed"].placements)}
+    # BatchStream(shardings=): each rank keeps its own rows of the same draw.
+    shape = InputShape("t", 16, 4, "train")
+    specs = rules.batch_pspecs(cfg, mesh, {"tokens": torch.zeros(4, 16), "targets":
+                                           torch.zeros(4, 16)})
+    placed = BatchStream(cfg, shape, seed=5, shardings=(mesh, specs),
+                         device=device.type).batch_at(2)
+    whole = BatchStream(cfg, shape, seed=5, device=device.type).batch_at(2)
+    out["stream"] = {k: (placed[k].to_local(), whole[k].chunk(2)[rank]) for k in whole}
+    return out
+
+
+def _lm_ensemble(mesh, rank: int, data: dict) -> dict:
+    """The ensemble step over the two 'data' ranks: each rank draws and
+    steps its own member; against the one-process ensemble (every member
+    drawn and stepped in turn)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.training import trainer
+
+    cfg = get_config("qwen3-0.6b").reduced()
+    model = build(cfg)
+    opt = adamw(AdamWConfig(lr=LM_LR))
+    batch = _lm_batch(cfg, 15)
+    states = trainer.ensemble_init(model, opt, _gen(16), N_RANKS, device="cpu", mesh=mesh)
+    local = trainer.ensemble_init(model, opt, _gen(16), N_RANKS, device="cpu")
+    drawn = {k: (states.params[k].to_local()[0].clone(), local.params[k][rank].clone())
+             for k in ("embed", "unembed")}
+    _, metrics = trainer.make_ensemble_train_step(model, opt, mesh, N_RANKS)(states, batch)
+    _, lmetrics = trainer.make_ensemble_train_step(model, opt, None, N_RANKS)(local, batch)
+    return {"drawn": drawn,
+            "loss": (metrics["loss"].to_local(), lmetrics["loss"][rank:rank + 1]),
+            "stepped": {k: (states.params[k].to_local()[0], local.params[k][rank])
+                        for k in ("embed", "unembed")},
+            "step": (states.opt.step.to_local(), local.opt.step[rank:rank + 1])}
+
+
 def fail_or_hang(rank: int, device: torch.device) -> None:
     """Rank 0 fails at once; rank 1 would wait far past any test's limit."""
     if rank == 0:
@@ -264,4 +387,6 @@ def all_cases(rank: int, device: torch.device, data: dict) -> dict:
         "pipeline": _pipeline(mesh, rank, data),
         "ensemble": _ensemble(mesh, rank, data),
         "engine": _engine(mesh, rank, data),
+        "lm_mesh": _lm_mesh(rank, device),
+        "lm_ensemble": _lm_ensemble(mesh, rank, data),
     }
