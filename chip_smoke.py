@@ -2,7 +2,8 @@
 """Drive the PyTorch port of the seizure-scoring, training (emulated
 and over torch.distributed), dense LM serving, LM training, the moe,
 xLSTM, vlm and audio LM families, hybrid LM serving and the mesh
-Model's paths on one CUDA card, and the dry run's tools beside them.
+Model's paths on one CUDA card, the dry run's tools beside them, and the
+port's example scripts.
 
 Run from the root of a checkout, with no arguments:
 
@@ -46,13 +47,15 @@ Phases (any failure exits non-zero):
      first step after a restore against a steady step). The phase-3
      traffic through a reference_kernels=True program (the reference's
      pre-megabatch math: gather-form wavelet levels, sample-major PCA with
-     the masked reconstruction, scatter-add synthesis) at overlap 0 and 2:
+     the masked reconstruction, the longhand transpose synthesis) at
+     overlap 0 and 2:
      events within phase 4's rule of the default leg's, K1 1, K2 9 (each
      wavelet level K2's single level) and K3 6 launches a step, windows/s
      of both legs; K2's single level and K3 held against their plain
-     versions at every shape the leg gives them, and a reading of whether
-     the leg's scatter-add synthesis (atomic adds) gives the same bits
-     twice. One session's stream fed
+     versions at every shape the leg gives them, and two calls of the
+     leg on the same inputs (its synthesis at a step's widest level, summed
+     in a fixed order, and its features of two chunks) torch.equal. One
+     session's stream fed
      to a StreamingFrontend (overlap 2) in unaligned pieces and resumed
      from its state_dict between chunk boundaries: bit-equal to the
      uninterrupted feed and to pipeline.process_windows.
@@ -222,8 +225,10 @@ Phases (any failure exits non-zero):
      strong and weak decay, float32), and the states and outputs modes on
      the model's layout (B and C once per batch row, v and ld as (B, S, H,
      ...): the static prefill's 8 rows x 8 chunks x 112 heads, a batch-1
-     admission, L = 77, strong and weak decay, float32), each element
-     within SSD_TOL of its row's scale, each mode also against the plain
+     admission, L = 77, strong and weak decay, float32; and the CUDA-core
+     body at other SSD sizes: the reduced configs' state 16, head 32 in
+     float32, one chunk of 19 and two of 32, and bf16 at 24 x 40), each
+     element within SSD_TOL of its row's scale, each mode also against the plain
      version of float32 copies of its inputs (the states within
      SSD_TOL["float32"]) and the states mode handed a nonzero h_in
      bit-equal to it without; then ssd_scan_grouped end to end at (8, 2048,
@@ -263,12 +268,39 @@ Phases (any failure exits non-zero):
      mesh (4 rows a rank), the ranks' logits within LM_LOGIT_TOL of (b)'s,
      K5 28 launches a rank; one AdamW step of a 2-layer qwen3 on (2, 1)
      against the one-process step (MESH_* comment).
-  10. A ``kernels`` JSON line (K1-K6; launches summed over the counted
+  10. The examples. Each of the port's four example scripts runs as a
+     user runs it, ``python examples/<name>_torch.py`` in a subprocess at
+     its defaults (``eeg_seizure_prediction_torch.py`` for patient 3 and
+     patient 4): each must exit 0 and end with a ``json`` line ("example"
+     lines: wall seconds and results). Then the two seizure examples' steps
+     in this process, twice on the same draws, through the kernels and
+     through the plain versions (``plain_versions``), each plain run on the
+     kernel run's forest or program: the paper's experiment (patient 3,
+     the defaults) must launch K1, K2, K3 and K4 and give the results of
+     the example's own run at its defaults (the same draws), its training
+     and timeline window votes may differ only at routing margin < 1e-3, its
+     training accuracy only by those windows, and its chunk votes, alarms
+     and lead time must be equal; the streaming demo's events (2 patients
+     on 4 slots, pushes of 25 windows) must agree by phase 4's rule, its
+     engine steps launch K1 1, K2 2 and K3 6 times, and each patient's
+     served alarms must equal ``pipeline.evaluate_program`` of the same
+     program on that patient's stream. Each fit's K4 launches, every one,
+     and its K2 and K3 shapes are held to their plain versions on the
+     inputs captured in the kernel run (phase 6's rules), and the
+     experiment's map features by phase 6's feature rule. Then
+     serve_batched_torch.py's model (zamba2-7b reduced, float32) through
+     its static batch and its continuous requests, through the kernels
+     and the plain versions: every prefill runs K6 (twice a Mamba2 block),
+     each SSD scan of the kernel run within SSD_TOL["float32"] of its
+     plain version on its captured inputs, logits and tokens by phase 7's
+     rule at BATCHED_LOGIT_REL. The in-process kernel runs' launches join
+     the ``kernels`` line.
+  11. A ``kernels`` JSON line (K1-K6; launches summed over the counted
      runs of phases 3, 4b, 6, 6c (every rank's mesh fit), 6d (every
      rank's engine runs), 7, 7b (its serving forwards), 7c (the moe
-     engine runs), 8 and 9 (every rank's mesh prefills)), the
-     script's seconds, the card line,
-     and the last line ``{"ok": true, "device": {...}}``.
+     engine runs), 8, 9 (every rank's mesh prefills) and 10 (the
+     examples' in-process kernel runs)), the script's seconds, the card
+     line, and the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -483,6 +515,10 @@ SSD_SCAN_TOL = (2.0**-7, 2.0**-4)
 # bf16 body blocks of several heads (G NC Hg = 896 heads over about four
 # waves of 132 SMs: two a block) whose warpgroups own one 64-row slab of y
 # each, so each stores its slab once per head through the same two buffers.
+# A case may end with (Dk, Dv), the SSD state and head sizes, for 64 and 64:
+# the reduced configs' (16, 32; serve_batched_torch.py's prefills, float32,
+# prompts up to 19 tokens in one chunk, two chunks of 32 at 64), and odd
+# sizes in bf16, run by the CUDA-core body.
 SSD_CASES = (
     ("static prefill", "full", 8 * 112, 8, 256, 1, "bfloat16", "model"),
     ("batch-1 admission", "full", 112, 2, 256, 1, "bfloat16", "model"),
@@ -498,6 +534,10 @@ SSD_CASES = (
     ("strong decay", "grouped", 1, 2, 256, 112, "bfloat16", "strong"),
     ("weak decay", "grouped", 8, 8, 256, 112, "bfloat16", "weak"),
     ("float32", "grouped", 1, 2, 256, 112, "float32", "model"),
+    ("reduced prefill", "full", 4 * 16, 1, 19, 1, "float32", "model", 16, 32),
+    ("reduced prefill", "grouped", 4, 1, 19, 16, "float32", "model", 16, 32),
+    ("reduced, two chunks", "grouped", 2, 2, 32, 16, "float32", "weak", 16, 32),
+    ("bf16 off 64", "grouped", 2, 2, 77, 16, "bfloat16", "model", 24, 40),
 )
 # K1 and K2 cases of phase 2 (tools/scoring_faults.py reads the same). K1: an
 # engine step's rows, and a row count that is a multiple of no block size.
@@ -1493,16 +1533,28 @@ def reference_leg_phase(program, traffic, default_runs) -> dict[str, int]:
               f"{sorted(s for s, _ in captured['gram'])}")
         del captured
         torch.cuda.empty_cache()
-    # The leg's scatter-add synthesis adds with atomics (index_add_): read
-    # whether two calls on the same inputs give the same bits.
-    from repro_torch.signal import wavelet
+    # The leg sums its synthesis in a fixed order (no atomics): two calls on
+    # the same inputs, of the synthesis at a step's widest level and of the
+    # leg's features of two chunks, must give the same bits.
+    from repro_torch.signal import pipeline, wavelet
 
     extra = torch.Generator(device="cuda").manual_seed(SEED + 2)
     a, d = (torch.randn((MAX_BATCH * REPLAY_DEPTH, 180, 1024), generator=extra, device="cuda")
             for _ in range(2))
     first, second = (wavelet.synthesis_step_reference(a, d) for _ in range(2))
-    print(f"reference_kernels leg: scatter-add synthesis of {tuple(a.shape)} twice on the same "
-          f"inputs: {int((first != second).sum())} of {first.numel()} outputs differ")
+    if not torch.equal(first, second):
+        fail(f"reference_kernels leg: the synthesis of {tuple(a.shape)} differs between two "
+             f"calls on the same inputs ({int((first != second).sum())} of {first.numel()})")
+    pid = next(iter(traffic))
+    windows = torch.from_numpy(traffic[pid][:120]).to("cuda")
+    leg_cfg = program.cfg._replace(reference_kernels=True)
+    f1, f2 = (pipeline.process_windows(windows, leg_cfg) for _ in range(2))
+    if not torch.equal(f1, f2):
+        fail("reference_kernels leg: two calls of its features on the same two chunks differ "
+             f"({int((f1 != f2).sum())} of {f1.numel()})")
+    print(f"reference_kernels leg: two calls on the same inputs torch.equal (the synthesis of "
+          f"{tuple(a.shape)}, {first.numel()} outputs; the features of 2 chunks, "
+          f"{tuple(f1.shape)})")
     return launches
 
 
@@ -3816,28 +3868,34 @@ def ssd_log_decay(x, decay: str, gen):
     return -F.softplus(x) * torch.exp(a_log)
 
 
+def ssd_dims(case) -> tuple[int, int]:
+    """A K6 case's (Dk, Dv) (see SSD_CASES)."""
+    return tuple(case[8:10]) if len(case) > 8 else (64, 64)
+
+
 def ssd_inputs(gen, case) -> tuple:
-    """One case's inputs (see SSD_CASES): "full", q, k, v (G, NC, L, 64), ld
-    (G, NC, L) of the case's type, h_in (G, NC, 64, 64) float32; "grouped",
-    q, k (G, NC, L, 64), v (G, NC, L, Hg, 64), ld (G, NC, L, Hg), h_in (G, Hg,
-    NC, 64, 64)."""
+    """One case's inputs (see SSD_CASES): "full", q, k (G, NC, L, Dk), v (G,
+    NC, L, Dv), ld (G, NC, L) of the case's type, h_in (G, NC, Dk, Dv)
+    float32; "grouped", q, k (G, NC, L, Dk), v (G, NC, L, Hg, Dv), ld (G,
+    NC, L, Hg), h_in (G, Hg, NC, Dk, Dv)."""
     import torch
 
-    _, layout, g, nc, l, hg, dtype, decay = case
+    _, layout, g, nc, l, hg, dtype, decay = case[:8]
+    dk, dv = ssd_dims(case)
     dt = getattr(torch, dtype)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=gen.device)
 
     if layout == "full":
-        q, k, v = (randn(g, nc, l, 64).to(dt) for _ in range(3))
+        q, k, v = (randn(g, nc, l, d).to(dt) for d in (dk, dk, dv))
         ld = ssd_log_decay(randn(g, nc, l), decay, gen).to(dt)
-        return q, k, v, ld, 16.0 * randn(g, nc, 64, 64)
-    qk = randn(g, nc, l, 128).to(dt)
-    v = randn(g, nc, l, hg, 64).to(dt)
+        return q, k, v, ld, 16.0 * randn(g, nc, dk, dv)
+    qk = randn(g, nc, l, 2 * dk).to(dt)
+    v = randn(g, nc, l, hg, dv).to(dt)
     ld = ssd_log_decay(randn(g * hg, nc, l), decay, gen).reshape(g, hg, nc, l)
     ld = ld.permute(0, 2, 3, 1).contiguous().to(dt)
-    return qk[..., :64], qk[..., 64:], v, ld, 16.0 * randn(g, hg, nc, 64, 64)
+    return qk[..., :dk], qk[..., dk:], v, ld, 16.0 * randn(g, hg, nc, dk, dv)
 
 
 def ssd_share(got, want, dtype: str, tol=None) -> float:
@@ -3850,28 +3908,29 @@ def ssd_share(got, want, dtype: str, tol=None) -> float:
     return float(((got - want).abs() / tol).max())
 
 
-def ssd_bound(mode: str, g: int, nc: int, l: int, hg: int, dtype: str) -> tuple[float, str]:
+def ssd_bound(mode: str, g: int, nc: int, l: int, hg: int, dtype: str, dk: int = 64,
+              dv: int = 64) -> tuple[float, str]:
     """Least time for one K6 launch of ``mode`` ("full", "states" or
-    "outputs") on G groups of Hg heads, NC chunks of L rows, head 64: q and k
-    read once per group (states: k only), v and ld once per head, h_in read
-    (full, outputs), y written (full, outputs) and the state written (full,
-    states) once; against the products: the causal q k^T once per group and
-    chunk (64 L (L + 1) MACs, half of them for L = 1 ... exactly the causal
-    pairs) and P v per head (the same count), on the tensor cores in bf16,
-    and q h_in and the state (L 64^2 MACs each per head). In bf16 the kernel
-    runs each float32 product as three bf16 tensor-core products, and the
-    bound counts them so; in float32 every product runs on the CUDA cores at
-    the float32 rate."""
+    "outputs") on G groups of Hg heads, NC chunks of L rows, state Dk and
+    head Dv: q and k read once per group (states: k only), v and ld once per
+    head, h_in read (full, outputs), y written (full, outputs) and the state
+    written (full, states) once; against the products: the causal q k^T once
+    per group and chunk (Dk L (L + 1) / 2 MACs ... exactly the causal pairs)
+    and P v per head (Dv L (L + 1) / 2), on the tensor cores in bf16, and q
+    h_in and the state (L Dk Dv MACs each per head). In bf16 the tensor-core
+    body runs each float32 product as three bf16 tensor-core products, and
+    the bound counts them so; in float32 every product runs on the CUDA
+    cores at the float32 rate."""
     es = 2 if dtype == "bfloat16" else 4
     chunks, heads = g * nc, g * nc * hg
     wants_y, wants_state = mode != "states", mode != "outputs"
-    n_bytes = (chunks * l * 64 * es * (2 if wants_y else 1)    # q, k
-               + heads * (l * 64 * es + l * es)                # v, ld
-               + heads * l * 64 * es * wants_y                 # y
-               + heads * 64 * 64 * 4 * (wants_y + wants_state))  # h_in, state
-    causal = 2.0 * 64 * l * (l + 1) / 2                        # flop of one causal product
-    f32_products = heads * 2.0 * l * 64 * 64 * (wants_y + wants_state)
-    tc = (chunks + heads) * causal * wants_y
+    n_bytes = (chunks * l * dk * es * (2 if wants_y else 1)    # q, k
+               + heads * (l * dv * es + l * es)                # v, ld
+               + heads * l * dv * es * wants_y                 # y
+               + heads * dk * dv * 4 * (wants_y + wants_state))  # h_in, state
+    causal = 2.0 * l * (l + 1) / 2                             # flop of a causal product per dim
+    f32_products = heads * 2.0 * l * dk * dv * (wants_y + wants_state)
+    tc = (chunks * dk + heads * dv) * causal * wants_y
     if dtype == "bfloat16":
         t_ops = (tc + 3 * f32_products) / BF16_FLOP_PER_S * 1e3
     else:
@@ -3889,8 +3948,12 @@ def ssd_case_inputs(gen) -> list:
     from repro_torch.kernels.ssd import ref as sr
 
     out = []
+    # The cases with their own (Dk, Dv) draw from a generator of their own,
+    # so that every other case, and the scan checks after them, draw from
+    # ``gen`` what they drew before those cases were added.
+    sized = torch.Generator(device=gen.device).manual_seed(SEED + 6)
     for case in SSD_CASES:
-        inputs = ssd_inputs(gen, case)
+        inputs = ssd_inputs(sized if len(case) > 8 else gen, case)
         if case[1] == "full":
             out.append((case, inputs, sr.ssd_chunks(*inputs)))
             continue
@@ -3970,12 +4033,14 @@ def check_ssd(gen) -> dict[str, dict]:
 
     rows = {}
     for case, inputs, want in ssd_case_inputs(gen):
-        name, layout, g, nc, l, hg, dtype, decay = case
+        name, layout, g, nc, l, hg, dtype, decay = case[:8]
+        dk, dv = ssd_dims(case)
         shares, err = ssd_shares(case, inputs, want)
         rel, row = SSD_TOL[dtype]
         text = ", ".join(f"{c} {s:.4f}" for c, s in shares.items())
         if not max(shares.values()) <= 1.0:
-            fail(f"K6 {layout} {name} ({g}, {nc}, {l}, {hg}) {dtype}: an element exceeds its "
+            fail(f"K6 {layout} {name} ({g}, {nc}, {l}, {hg}, {dk}, {dv}) {dtype}: an element "
+                 f"exceeds its "
                  f"tolerance; worst shares by check: {text}")
         cum_min = float(torch.cumsum(inputs[3].float(), 2).min())
         if decay == "strong" and not cum_min < -1000:
@@ -3985,7 +4050,7 @@ def check_ssd(gen) -> dict[str, dict]:
         if layout == "full":
             calls = {"ssd_chunks": (lambda: sk.ssd_chunks(*inputs),
                                     lambda: sr.ssd_chunks(*inputs), "full")}
-            dims = f"({g}, {nc}, {l}, 64)"
+            dims = f"({g}, {nc}, {l}, {dk if dk == dv else f'{dk}, {dv}'})"
             shape = f"q, k, v {dims}, h_in nonzero"
         else:
             calls = {"ssd_chunk_states": (lambda: sk.ssd_chunk_states(k, v, ld),
@@ -3993,10 +4058,10 @@ def check_ssd(gen) -> dict[str, dict]:
                      "ssd_chunk_outputs": (lambda: sk.ssd_chunk_outputs(q, k, v, ld, h_in),
                                            lambda: sr.ssd_chunk_outputs(q, k, v, ld, h_in),
                                            "outputs")}
-            dims = f"({g}, {nc}, {l}, {hg}, 64)"
-            shape = f"q, k ({g}, {nc}, {l}, 64) strided, v {dims}, h_in nonzero"
+            dims = f"({g}, {nc}, {l}, {hg}, {dv})"
+            shape = f"q, k ({g}, {nc}, {l}, {dk}) strided, v {dims}, h_in nonzero"
         for fn_name, (kernel_fn, plain_fn, mode) in calls.items():
-            b_ms, b_by = ssd_bound(mode, g, nc, l, hg, dtype)
+            b_ms, b_by = ssd_bound(mode, g, nc, l, hg, dtype, dk, dv)
             rows[f"{fn_name}/{name} {dims} {dtype} {decay} decay"] = dict(
                 shape=f"{shape}, min cum {cum_min:.1f}", max_abs_err=err, tol=None,
                 note=f"tol per element {rel:.3g} |plain| + {row:.3g} max|plain row|; the "
@@ -4507,6 +4572,410 @@ def mesh_phase(gen, smi: str) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the examples
+# ---------------------------------------------------------------------------
+
+# Each example as a user runs it: the script and its arguments (the
+# defaults, and the paper's experiment for a second patient).
+EXAMPLE_RUNS = (("eeg_seizure_prediction_torch", ()),
+                ("eeg_seizure_prediction_torch", ("--patient", "4")),
+                ("serve_seizure_torch", ()),
+                ("serve_batched_torch", ()),
+                ("quickstart_torch", ()))
+EXAMPLE_TIMEOUT_S = 600.0
+EEG_PATIENT = 3      # the eeg example's default patient
+SERVE_PATIENTS = 2   # the streaming demo's defaults
+SERVE_BATCH = 4
+SERVE_PUSH = 25
+BATCHED_ARCH = "zamba2-7b"  # serve_batched_torch.py's defaults
+BATCHED_SLOTS = 4
+BATCHED_MAX_NEW = 12
+# serve_batched_torch.py's model is float32 at the reduced widths, where K6
+# and the plain chunk step differ by float32 roundings (SSD_TOL["float32"]
+# per element) and logits on the same context by a few float32 ulps of the
+# largest: 2^-10 of it leaves room for those through the two blocks and the
+# head, and a wrong kernel moves a logit by O(1). Tokens are held equal up
+# to a plain margin below half that.
+BATCHED_LOGIT_REL = 2.0**-10
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module, imported once per process (the
+    port's tests load the examples through this too)."""
+    import importlib.util
+
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+    return sys.modules[name]
+
+
+def run_example(name: str, args: tuple, smi: str) -> dict:
+    """``python examples/<name>.py *args`` from the root of the checkout:
+    exit 0 and a final json line, or the phase fails."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p))
+    cmd = [sys.executable, str(ROOT / "examples" / f"{name}.py"), *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=EXAMPLE_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"example {name} {' '.join(args)} exited {proc.returncode}:\n"
+             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    try:
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"example {name} {' '.join(args)} printed no final json line:\n{proc.stdout[-2000:]}")
+    shown = {k: v for k, v in res.items() if k not in ("tokens", "served")}
+    print(f"example {name} {' '.join(args)}: exit 0 in {seconds:.1f} s wall ({smi}); {shown}")
+    return res
+
+
+def window_margins(packed, feat_mean, feat_std, feats):
+    """(rows,) routing margins of feature rows under a program's forest."""
+    from repro_torch.signal import features
+
+    x, _, _ = features.normalize(feats, feat_mean, feat_std)
+    return path_walk(x, packed)[0].cpu().numpy()
+
+
+def timeline_margins(program, windows, bad):
+    """Margins of the timeline windows ``bad`` (indices), with the features
+    the engine gives them: their chunk's, or the self-wrapped tail's."""
+    from repro_torch.signal import pipeline
+
+    per = 60
+    whole = windows.shape[0] // per * per
+    out = np.full(len(bad), np.inf)
+    stream = {0: windows.cpu().numpy()}
+    for k in sorted({int(i) // per for i in bad if i < whole}):
+        m = chunk_margins(program, stream, 0, k)
+        sel = [j for j, i in enumerate(bad) if i // per == k]
+        out[sel] = m[[bad[j] - k * per for j in sel]]
+    tail = [j for j, i in enumerate(bad) if i >= whole]
+    if tail:
+        feats = pipeline.process_windows(windows[whole:], program.cfg)
+        m = window_margins(program.packed, program.feat_mean, program.feat_std, feats)
+        out[tail] = m[[bad[j] - whole for j in tail]]
+    return out
+
+
+@contextlib.contextmanager
+def fit_inputs():
+    """Capture, for the duration, the inputs of every K4 launch (cloned: the
+    grower's level arguments, as ``level_check`` takes them) and the first
+    input of K2 (each tree and DWT kind, shape and level) and of K3 (each
+    shape): {"histogram": [...], "wpd_tree" / "dwt_levels": {(shape,
+    level): x}, "gram": {shape: x}}."""
+    from repro_torch.kernels.gram import kernel as gk
+    from repro_torch.kernels.histogram import ops as hist_ops
+    from repro_torch.kernels.wpd import kernel as wk
+
+    captured: dict = {"histogram": [], "wpd_tree": {}, "dwt_levels": {}, "gram": {}}
+
+    def k2(kind):
+        def hook(a, _):
+            rows = a[0].reshape(-1, a[0].shape[-1])
+            captured[kind].setdefault((tuple(rows.shape), a[3]), rows.clone())
+        return hook
+
+    def k4(a, kw):
+        captured["histogram"].append((*(t.clone() for t in a), dict(kw)))
+
+    def k3(a, _):
+        captured["gram"].setdefault(tuple(a[0].shape), a[0].clone())
+
+    stages: dict[str, float] = {}
+    with contextlib.ExitStack() as stack:
+        for owner, name, hook in ((wk, "wpd_tree", k2("wpd_tree")),
+                                  (wk, "dwt_levels", k2("dwt_levels")), (gk, "gram", k3),
+                                  (hist_ops, "level_histogram", k4)):
+            stack.enter_context(stage_clock(stages, owner, name, name, hook))
+        yield captured
+
+
+def check_fit_inputs(label: str, captured: dict, gen) -> str:
+    """K4 on every grower level ``fit_inputs`` captured, K2 and K3 on the
+    captured shapes, against their plain versions by phase 6's rules: K4
+    exact on the level's 0/1 weights and within 1e-5 relative on random
+    float weights, K2 within 1e-5 max|x| and bit-equal to the chained single
+    level, K3 within 1e-5 max|G|. Returns a summary."""
+    worst = 0.0
+    for i, inputs in enumerate(captured["histogram"]):
+        err, rel_f = level_check(inputs, gen)
+        worst = max(worst, rel_f)
+        if err != 0.0 or not rel_f <= 1e-5:
+            fail(f"{label}: K4 launch {i} of the fit differs from its plain version: {err} on "
+                 f"its 0/1 weights, relative {rel_f} on float weights")
+    for kind in ("wpd_tree", "dwt_levels"):
+        for (shape, level), x in captured[kind].items():
+            err, tol, bits = multilevel_check(kind, x, level)
+            if not (err <= tol and bits):
+                fail(f"{label}: K2 {kind} {shape} L{level}: error {err} (tol {tol}), "
+                     f"bit-equal to the chained level: {bits}")
+    for shape, x in captured["gram"].items():
+        err, tol = gram_check(x)
+        if not err <= tol:
+            fail(f"{label}: K3 {shape}: error {err} > {tol}")
+    return (f"{len(captured['histogram'])} K4 launches exact (float weights within "
+            f"{worst:.1e}), K2 at {len(captured['wpd_tree']) + len(captured['dwt_levels'])} "
+            f"and K3 at {len(captured['gram'])} shapes within 1e-5")
+
+
+def eeg_example_check(smi: str, subprocess_result: dict) -> dict[str, int]:
+    """The paper's experiment in process, through the kernels and then the
+    plain versions on the kernel run's forest (same draws). The kernel run
+    draws what the example draws at its defaults, so its results must be
+    those of the example's own run (``subprocess_result``); every K4 launch
+    of its fit and its K2 and K3 shapes are held to their plain versions on
+    the captured inputs, and its map features to phase 6's rule."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.serving import api
+    from repro_torch.signal import eeg_data, pipeline
+
+    ex = load_example("eeg_seizure_prediction_torch")
+    dev = torch.device("cuda")
+    rec = eeg_data.make_training_set(ex._generator(dev, EEG_PATIENT, 0), EEG_PATIENT, 120, 120)
+    test = eeg_data.make_test_timeline(ex._generator(dev, EEG_PATIENT, 2), EEG_PATIENT,
+                                       hours_interictal=1)
+    quiet = lambda *a: None  # noqa: E731
+    reset_counts()
+    with fit_inputs() as captured:
+        t0 = time.perf_counter()
+        kern = ex.run(EEG_PATIENT, device=dev, recording=rec, timeline=test, log=quiet)
+        seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    if not all(counts[k] for k in ("forest", "wpd_level", "gram", "histogram")):
+        fail(f"eeg example: the kernel run launched {counts}; K1-K4 must each launch")
+    if len(captured["histogram"]) != counts["histogram"]:
+        fail(f"eeg example: {len(captured['histogram'])} K4 calls captured, "
+             f"{counts['histogram']} launched")
+    fit_text = check_fit_inputs("eeg example", captured,
+                                torch.Generator(device=dev).manual_seed(SEED + 4))
+    del captured
+    keys = ("train_accuracy", "chunk_preds", "alarms", "lead_time_minutes", "onset_chunk")
+    if any(kern[k] != subprocess_result[k] for k in keys):
+        fail(f"eeg example: the in-process kernel run differs from the example's own run: "
+             f"{ {k: kern[k] for k in keys} } vs { {k: subprocess_result[k] for k in keys} }")
+    reset_counts()
+    with plain_versions():
+        t0 = time.perf_counter()
+        plain = ex.run(EEG_PATIENT, device=dev, recording=rec, timeline=test,
+                       fitted=kern["fitted"], log=quiet)
+        plain_seconds = time.perf_counter() - t0
+        if any(launch_counts().values()):
+            fail("eeg example: a kernel launched during the plain run")
+        fitted = convert.fitted_from_arrays(kern["fitted"], dev)
+        program = api.ScoringProgram.from_fitted(fitted, ex.CONFIG)
+        z = float((np.abs(kern["features"] - plain["features"])
+                   / kern["fitted"]["feat_std"]).max())
+        # Phase 6's feature rule: the kernel path's distance from the port on
+        # the host CPU at most twice the plain path's (p99 and p99.9, z-units).
+        host = pipeline.process_windows(rec.windows.cpu(), ex.CONFIG)
+        zk, zp = (_z_units(torch.from_numpy(f), host) for f in (kern["features"],
+                                                                 plain["features"]))
+        for q in ("p99", "p999"):
+            if not zk[q] <= 2 * zp[q]:
+                fail(f"eeg example: map features through the kernels are {zk[q]} z-units ({q}) "
+                     f"from the CPU port's, more than twice the plain path's {zp[q]}")
+        for key in ("chunk_preds", "alarms", "lead_time_minutes", "onset_chunk"):
+            if kern[key] != plain[key]:
+                fail(f"eeg example: {key} differ between the kernel and plain paths: "
+                     f"{kern[key]} vs {plain[key]}")
+        bad_train = np.nonzero(kern["train_preds"] != plain["train_preds"])[0]
+        if bad_train.size:
+            feats = pipeline.process_windows(rec.windows, ex.CONFIG)
+            m = window_margins(program.packed, program.feat_mean, program.feat_std, feats)
+            if not (m[bad_train] < 1e-3).all():
+                fail(f"eeg example: training votes differ at margins {m[bad_train]}")
+        gap = abs(kern["train_accuracy"] - plain["train_accuracy"]) * len(kern["train_preds"])
+        if gap > bad_train.size + 1e-3:
+            fail(f"eeg example: training accuracy {kern['train_accuracy']} vs "
+                 f"{plain['train_accuracy']} beyond the {bad_train.size} differing votes")
+        bad = np.nonzero(kern["window_preds"] != plain["window_preds"])[0]
+        if bad.size:
+            m = timeline_margins(program, test.windows, bad)
+            if not (m < 1e-3).all():
+                fail(f"eeg example: timeline votes differ at margins {m}")
+    print(f"example eeg in process (patient {EEG_PATIENT}, {kern['train_windows']} training "
+          f"windows, {len(kern['chunk_preds'])} timeline chunks): kernels {seconds:.2f} s "
+          f"(stages {kern['seconds']}), plain {plain_seconds:.2f} s, launches {counts}; "
+          f"accuracy {kern['train_accuracy']:.4f} vs {plain['train_accuracy']:.4f}, "
+          f"{bad_train.size} training and {bad.size} timeline votes differ (at margin < 1e-3), "
+          f"chunk votes, alarms and lead time ({kern['lead_time_minutes']} min) equal; "
+          f"map features {z:.3g} program z-units apart, from the CPU's kernels p99 "
+          f"{zk['p99']:.3e} / p99.9 {zk['p999']:.3e}, plain {zp['p99']:.3e} / {zp['p999']:.3e}; "
+          f"fit: {fit_text} ({smi})")
+    return counts
+
+
+def serve_example_check(smi: str) -> dict[str, int]:
+    """The streaming demo's steps in process: one program fitted through the
+    kernels, served through the kernels and the plain versions."""
+    import torch
+
+    from repro_torch.signal import eeg_data, pipeline
+
+    ex = load_example("serve_seizure_torch")
+    quiet = lambda *a: None  # noqa: E731
+    reset_counts()
+    with fit_inputs() as captured:
+        program = ex.train_program(device="cuda", log=quiet)
+    counts = launch_counts()
+    if not counts["histogram"] or len(captured["histogram"]) != counts["histogram"]:
+        fail(f"serve example: {len(captured['histogram'])} K4 calls captured in the fit, "
+             f"{counts['histogram']} launched")
+    fit_text = check_fit_inputs("serve example", captured,
+                                torch.Generator(device="cuda").manual_seed(SEED + 5))
+    del captured
+    streams = ex.make_streams(SERVE_PATIENTS, device="cuda")
+    reset_counts()
+    kern = ex.serve(program, streams, batch=SERVE_BATCH, push_windows=SERVE_PUSH,
+                    device="cuda", log=quiet)
+    served = launch_counts()
+    want = {"forest": kern["steps"], "wpd_level": 2 * kern["steps"], "gram": 6 * kern["steps"]}
+    if {k: served[k] for k in want} != want:
+        fail(f"serve example: launches {served} over {kern['steps']} steps, expected {want}")
+    for k, n in served.items():
+        counts[k] += n
+    reset_counts()
+    with plain_versions():
+        plain = ex.serve(program, streams, batch=SERVE_BATCH, push_windows=SERVE_PUSH,
+                         device="cuda", log=quiet)
+        if any(launch_counts().values()):
+            fail("serve example: a kernel launched during the plain run")
+    differing = compare_events(kern["events"], plain["events"], program, streams)
+    for pid, stream in streams.items():
+        oracle = pipeline.evaluate_program(program, eeg_data.Recording(
+            torch.from_numpy(stream).to("cuda"),
+            torch.zeros(stream.shape[0], dtype=torch.int32, device="cuda")))
+        if kern["served"][pid]["alarms"] != oracle.alarms.tolist():
+            fail(f"serve example: patient {pid}'s served alarms {kern['served'][pid]['alarms']} "
+                 f"differ from evaluate_program's {oracle.alarms.tolist()}")
+        if kern["final_alarms"][pid] != oracle.alarms.tolist()[-1]:
+            fail(f"serve example: patient {pid}'s final alarm state differs")
+    print(f"example serve in process ({SERVE_PATIENTS} patients, {kern['chunks']} chunks on "
+          f"{SERVE_BATCH} slots): kernels {kern['windows_per_s']:.1f} windows/s "
+          f"({kern['steps']} steps, {kern['seconds']:.2f} s), plain "
+          f"{plain['windows_per_s']:.1f}; events equal, {differing} window votes differ (at "
+          f"margin < 1e-3); served alarms equal evaluate_program's, final states "
+          f"{kern['final_alarms']}; launches {counts}; fit: {fit_text} ({smi})")
+    return counts
+
+
+def batched_example_check(smi: str) -> int:
+    """serve_batched_torch.py's default model (zamba2-7b reduced: SSD state
+    16, head 32, chunk 32, float32) in process: its static batch and its
+    ``--continuous`` requests through the kernels, then through the plain
+    versions. Every prefill must run K6 (twice a Mamba2 block); each
+    ``ssd_scan_grouped`` call of the kernel runs, on its captured inputs,
+    within SSD_TOL["float32"] of its plain version; logits on the same
+    context and tokens by phase 7's rule (``compare_paths``) at
+    BATCHED_LOGIT_REL. Returns K6's launches."""
+    import torch
+
+    from repro_torch.kernels.ssd import ops as so
+
+    ex = load_example("serve_batched_torch")
+    dev = torch.device("cuda")
+    model = ex.build_model(BATCHED_ARCH, dev)
+    cfg = model.cfg
+    n_mamba = cfg.n_layers  # every layer of the hybrid is a Mamba2 block
+    prompts = ex.static_prompts(cfg.vocab_size, BATCHED_SLOTS)
+    requests = ex.continuous_requests(cfg.vocab_size, BATCHED_SLOTS, BATCHED_MAX_NEW)
+    max_new = [m for _, m in requests]
+    steps, admissions = continuous_schedule(max_new, BATCHED_SLOTS)
+    scan, scans = so.ssd_scan_grouped, []
+
+    def captured_scan(*args, **kwargs):
+        scans.append(([t.clone() for t in args], dict(kwargs)))
+        return scan(*args, **kwargs)
+
+    def both():
+        with lm_recorder(model) as s_calls:
+            toks = ex.static(model, prompts, batch=BATCHED_SLOTS, max_new=BATCHED_MAX_NEW,
+                             device=dev)
+        with lm_recorder(model) as c_calls:
+            outs = ex.continuous(model, requests, batch=BATCHED_SLOTS, device=dev)
+        n = len(prompts)
+        static = [r[:len(t)] for r, t in zip(static_steps(s_calls, n, BATCHED_MAX_NEW), toks)]
+        cont = continuous_steps(c_calls, steps, admissions, len(requests), max_new)
+        if ([[st[0] for st in r] for r in static] != toks
+                or [[st[0] for st in r] for r in cont] != outs):
+            fail("batched example: the recorded calls do not replay the generated tokens")
+        return static, cont, len(s_calls["prefill"]) + len(c_calls["prefill"])
+
+    so.ssd_scan_grouped = captured_scan
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        kern_static, kern_cont, prefills = both()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        so.ssd_scan_grouped = scan
+    k6 = counts["ssd_chunks"]
+    if k6 != 2 * len(scans) or len(scans) != n_mamba * prefills or k6 == 0:
+        fail(f"batched example: K6 launched {k6} times over {len(scans)} SSD scans and "
+             f"{prefills} prefills of {n_mamba} Mamba2 blocks; every prefill must run K6 twice "
+             "a block")
+    share = 0.0
+    for args, kwargs in scans:
+        got = so.ssd_scan_grouped(*args, **kwargs)
+        with plain_versions():
+            want = so.ssd_scan_grouped(*args, **kwargs)
+        share = max(share, *(ssd_share(g, w, "float32") for g, w in zip(got, want)))
+    if not share <= 1.0:
+        fail(f"batched example: an SSD scan through K6 exceeds SSD_TOL['float32'] of the plain "
+             f"scan (worst share {share})")
+    shapes = sorted({tuple(a[2].shape) for a, _ in scans})
+    del scans
+    reset_counts()
+    with plain_versions():
+        t0 = time.perf_counter()
+        plain_static, plain_cont, _ = both()
+        plain_seconds = time.perf_counter() - t0
+    if any(launch_counts().values()):
+        fail("batched example: a kernel launched during the plain run")
+    largest = max(float(st[2].abs().max()) for r in plain_static + plain_cont for st in r)
+    tol = BATCHED_LOGIT_REL * largest
+    texts = []
+    for label, kern, plain in (("static", kern_static, plain_static),
+                               ("continuous", kern_cont, plain_cont)):
+        diff, n_logits, n_tokens, total = compare_paths(f"batched example {label}", kern, plain,
+                                                        tol, tol / 2)
+        texts.append(f"{label}: logits on the same context within {diff:.3e} over "
+                     f"{n_logits} of {total} steps, tokens equal on {n_tokens}")
+    print(f"example serve_batched in process ({cfg.name}, SSD state {cfg.ssm_state}, head "
+          f"{cfg.ssm_head_dim}, chunk {cfg.ssm_chunk}, {cfg.dtype}): kernels {seconds:.2f} s, "
+          f"plain {plain_seconds:.2f} s; K6 {k6} launches over {prefills} prefills, v shapes "
+          f"{shapes}, each scan within {share:.4f} of SSD_TOL['float32'] of its plain version; "
+          f"logit tol {tol:.3e} (2^-10 of {largest:.3f}); {'; '.join(texts)} ({smi})")
+    return k6
+
+
+def examples_phase(smi: str) -> dict[str, int]:
+    """Phase 10. Returns the in-process kernel runs' launches."""
+    t0 = time.perf_counter()
+    results = {(name, args): run_example(name, args, smi) for name, args in EXAMPLE_RUNS}
+    launches = {"forest": 0, "wpd_level": 0, "gram": 0, "histogram": 0}
+    eeg_defaults = results["eeg_seizure_prediction_torch", ()]
+    for counts in (eeg_example_check(smi, eeg_defaults), serve_example_check(smi)):
+        for k in launches:
+            launches[k] += counts[k]
+    launches["ssd_chunks"] = batched_example_check(smi)
+    print(f"phase 10 (the examples): {time.perf_counter() - t0:.1f} s, launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4634,6 +5103,10 @@ def main() -> int:
 
     # Phase 9.
     for k, n in mesh_phase(gen, smi).items():
+        launches[k] += n
+
+    # Phase 10.
+    for k, n in examples_phase(smi).items():
         launches[k] += n
 
     sources = {"forest": "forest.cu", "wpd_level": "wpd_level.cu", "gram": "gram.cu",

@@ -116,6 +116,7 @@ class _Module:
         # for ``from repro_torch.x import fn``.
         self.module_aliases: dict[str, str] = {}
         self.imported_names: dict[str, tuple[str, str]] = {}
+        self.import_aliases: dict[str, set[str]] = {}  # ``_aliases``' answers
         for n in ast.walk(self.tree):
             if isinstance(n, ast.ImportFrom) and n.module and (
                 n.module == "repro_torch" or n.module.startswith("repro_torch.")
@@ -214,8 +215,13 @@ def _reachable_calls(modules, reachable):
 # ---------------------------------------------------------------------------
 
 def _aliases(mod: _Module, module: str) -> set[str]:
-    return {a.asname or module for n in ast.walk(mod.tree) if isinstance(n, ast.Import)
+    """The local names under which ``mod`` imports ``module``, found once a
+    module (the rules ask at every call they look at)."""
+    if module not in mod.import_aliases:
+        mod.import_aliases[module] = {
+            a.asname or module for n in ast.walk(mod.tree) if isinstance(n, ast.Import)
             for a in n.names if a.name == module}
+    return mod.import_aliases[module]
 
 
 def rule_numpy_in_entry(modules, reachable):

@@ -24,11 +24,13 @@
 // per zamba2-7b prefill.
 //
 // Layout (the model's own, nothing expanded or transposed): q = C and k = B
-// as (G, NC, L, 64), one row per batch row (zamba2 has one B/C group), read
-// once per block; v and y as (G, NC, L, Hg, 64), ld as (G, NC, L, Hg), at
+// as (G, NC, L, Dk), one row per batch row (zamba2 has one B/C group), read
+// once per block; v and y as (G, NC, L, Hg, Dv), ld as (G, NC, L, Hg), at
 // their strides (models/ssm.py holds them as (B, S, H, P) and (B, S, H));
-// h_in and the state contiguous (G, Hg, NC, 64, 64) float32. Hg = 1 with
-// contiguous strides is the TPU kernel's (BH, NC, L, 64) layout.
+// h_in and the state contiguous (G, Hg, NC, Dk, Dv) float32. Hg = 1 with
+// contiguous strides is the TPU kernel's (BH, NC, L, D) layout. Dk = N and
+// Dv = P are 64 at the published widths (the bf16 body below); any sizes up
+// to 64 take the CUDA-core body.
 //
 // Bound on this card at the static prefill's shape (G = 8, NC = 8, L = 256,
 // Hg = 112, bf16; chip_smoke.py::ssd_bound reckons it from each run's
@@ -38,7 +40,7 @@
 // and 91 GFLOP (outputs) at the 989 TFLOP/s bf16 tensor-core rate, with each
 // float32 product counted as three bf16 products: under 0.1 ms.
 //
-// bf16 design: one block per (group, chunk, a run of ~14 heads), a producer
+// bf16 design (Dk = Dv = 64): one block per (group, chunk, a run of ~14 heads), a producer
 // warpgroup and two consumer warpgroups.
 //   - TMA loads through tensor maps (4-D for q, k: 64, L, NC, G; 5-D for v
 //     and y: 64, Hg, L, NC, G; built on the host from the strides), 128-byte
@@ -74,10 +76,12 @@
 //   q k^T is computed once per head, not once per group: sharing it across
 //   the heads would hold every head's accumulator or every key tile's scores
 //   in registers at once (PERF.md).
-// f32 design (the reference kernel takes f32 too; on the card only
-// chip_smoke.py's f32 checks send it): one 8-warp block per (group, chunk,
-// head), all products in float32 FMAs on the CUDA cores, per 64-row tile,
-// with P through shared memory; the same three modes and layout.
+// CUDA-core design, for float32, and for bf16 at other sizes than Dk = Dv =
+// 64 (the Pallas kernel takes any Dk and Dv; the reduced configs' SSD is N =
+// 16, P = 32 in float32): one 8-warp block per (group, chunk, head), all
+// products in float32 FMAs on the CUDA cores, per 64-row tile, with P through
+// shared memory, rounded to the input type as above; Dk, Dv <= 64, the same
+// three modes and layout (with Dk and Dv for 64).
 #include <algorithm>
 #include <type_traits>
 
@@ -85,7 +89,7 @@
 
 namespace {
 
-constexpr int kD = 64;          // Dk = Dv
+constexpr int kD = 64;          // Dk = Dv of the bf16 body; the most of either elsewhere
 constexpr int kMaxL = 256;      // chunk length
 constexpr int kMaxHeads = 16;   // heads of one group per block (bf16 body)
 constexpr int kMaxDevices = 64;
@@ -94,10 +98,11 @@ constexpr int kStates = 1;
 constexpr int kOutputs = 2;
 
 // Where a launch reads and writes: element strides of (g, c, l) for q and k,
-// of (g, c, l, h) for v, y and ld, the last dimension (64) contiguous.
+// of (g, c, l, h) for v, y and ld, the last dimension (Dk or Dv) contiguous.
 struct Layout {
   long long q[3], k[3], v[4], y[4], ld[4];
   int groups, heads, n_chunks, len;  // G, Hg, NC, L
+  int dk, dv;                        // q and k's last dimension, v and y's
   int heads_per_block, box_rows;     // bf16 body: heads a block runs, TMA box rows
 };
 
@@ -118,11 +123,20 @@ __device__ __forceinline__ Work block_work(const Layout& lay) {
 }
 
 __device__ __forceinline__ long long state_offset(const Layout& lay, int g, int h, int c) {
-  return ((static_cast<long long>(g) * lay.heads + h) * lay.n_chunks + c) * kD * kD;
+  return ((static_cast<long long>(g) * lay.heads + h) * lay.n_chunks + c) * lay.dk * lay.dv;
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_float(float x) { return static_cast<T>(x); }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+// x rounded to T's precision (the TPU kernel's scores.astype(v.dtype)).
+template <typename T>
+__device__ __forceinline__ float round_as(float x) { return to_float(from_float<T>(x)); }
 
 // One warp: cum[p] = ld[0] + ... + ld[p] for p < 256 (ld read as 0 past L).
 // Each lane sums 8 consecutive positions, then the lanes' totals are scanned
@@ -640,29 +654,31 @@ ssd_chunk_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------------------------
-// f32: the CUDA cores throughout, one block per (group, chunk, head), per
-// 64-row tile. 256 threads as 16 x 16 (ty, tx), each with rows ty + 16i and
-// keys (or columns) tx + 16j, i, j < 4. Shared memory: cum, dte (256 f32
-// each), h_in (64 x 64), then k and v (Lp rows of kLdf words), one q tile and
-// one P tile (64 rows of kLdf words each).
+// The CUDA cores throughout (float32, or bf16 off Dk = Dv = 64), one block per
+// (group, chunk, head), per 64-row tile. 256 threads as 16 x 16 (ty, tx), each
+// with rows ty + 16i and keys (or columns) tx + 16j, i, j < 4. Shared memory,
+// float32: cum, dte (256 each), h_in (64 x 64, zero past Dk x Dv), then k and
+// v (Lp rows of kLdf words, zero past Dk or Dv), one q tile and one P tile (64
+// rows of kLdf words each).
 // ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kLdf = kD + 1;   // f32 row stride in shared memory (words)
 constexpr int kTileF = 64;     // rows per tile, keys per tile
 
-size_t f32_smem_bytes(int lp) {
+size_t simt_smem_bytes(int lp) {
   return sizeof(float) * (2 * kMaxL + kD * kD + 2 * lp * kLdf + 2 * kTileF * kLdf);
 }
 
 // state = sum_l dte_l k_l^T v_l (+ exp(cum_{L-1}) h_in with the h_in term),
 // each thread a 4 x 4 tile: state rows 4 * (tid / 16) + i, columns
-// 4 * (tid % 16) + j.
-__device__ void chunk_state_f32(const float* k_s, const float* v_s, const float* h_s,
-                                const float* cum_s, const float* dte_s, int L, bool with_h,
-                                float* __restrict__ out) {
+// 4 * (tid % 16) + j, those below (Dk, Dv) written to the (Dk, Dv) state.
+__device__ void chunk_state_simt(const float* k_s, const float* v_s, const float* h_s,
+                                 const float* cum_s, const float* dte_s, int L, int dk, int dv,
+                                 bool with_h, float* __restrict__ out) {
   const int d0 = 4 * (threadIdx.x / 16);
   const int c0 = 4 * (threadIdx.x % 16);
+  if (d0 >= dk || c0 >= dv) return;
   float acc[4][4] = {};
   for (int l = 0; l < L; ++l) {
     const float w = dte_s[l];
@@ -678,22 +694,25 @@ __device__ void chunk_state_f32(const float* k_s, const float* v_s, const float*
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
+      if (d0 + i >= dk || c0 + j >= dv) continue;
       const float hv = with_h ? h_s[(d0 + i) * kD + c0 + j] : 0.f;
-      out[(d0 + i) * kD + c0 + j] = acc[i][j] + et * hv;
+      out[(d0 + i) * dv + c0 + j] = acc[i][j] + et * hv;
     }
   }
 }
 
-template <int MODE>
+template <int MODE, typename T>
 __global__ void __launch_bounds__(kThreads)
-ssd_chunk_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ ld,
-                     const float* __restrict__ h_in, float* __restrict__ y,
-                     float* __restrict__ state, const Layout lay) {
-  extern __shared__ uint4 smem_f32[];
+ssd_chunk_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ ld,
+                      const float* __restrict__ h_in, T* __restrict__ y,
+                      float* __restrict__ state, const Layout lay) {
+  extern __shared__ uint4 smem_simt[];
   const int L = lay.len;
+  const int dk = lay.dk;
+  const int dv = lay.dv;
   const int lp = (L + kTileF - 1) / kTileF * kTileF;
-  float* cum_s = reinterpret_cast<float*>(smem_f32);
+  float* cum_s = reinterpret_cast<float*>(smem_simt);
   float* dte_s = cum_s + kMaxL;
   float* h_s = dte_s + kMaxL;
   float* k_s = h_s + kD * kD;
@@ -704,17 +723,21 @@ ssd_chunk_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const Work w = block_work(lay);  // heads_per_block is 1
   const int h = w.h0;
   const long long hoff = state_offset(lay, w.g, h, w.c);
-  const float* kb = k + w.g * lay.k[0] + w.c * lay.k[1];
-  const float* vb = v + w.g * lay.v[0] + w.c * lay.v[1] + h * lay.v[3];
+  const T* kb = k + w.g * lay.k[0] + w.c * lay.k[1];
+  const T* vb = v + w.g * lay.v[0] + w.c * lay.v[1] + h * lay.v[3];
   for (int e = threadIdx.x; e < lp * kD; e += kThreads) {
     const int r = e / kD;
     const int c = e % kD;
     const bool ok = r < L;
-    k_s[r * kLdf + c] = ok ? kb[r * lay.k[2] + c] : 0.f;
-    v_s[r * kLdf + c] = ok ? vb[r * lay.v[2] + c] : 0.f;
+    k_s[r * kLdf + c] = ok && c < dk ? to_float(kb[r * lay.k[2] + c]) : 0.f;
+    v_s[r * kLdf + c] = ok && c < dv ? to_float(vb[r * lay.v[2] + c]) : 0.f;
   }
   if (MODE != kStates) {
-    for (int e = threadIdx.x; e < kD * kD; e += kThreads) h_s[e] = h_in[hoff + e];
+    for (int e = threadIdx.x; e < kD * kD; e += kThreads) {
+      const int r = e / kD;
+      const int c = e % kD;
+      h_s[e] = r < dk && c < dv ? h_in[hoff + r * dv + c] : 0.f;
+    }
   }
   if (threadIdx.x < 32) {
     warp_cumsum(ld + w.g * lay.ld[0] + w.c * lay.ld[1] + h * lay.ld[3], lay.ld[2], L, cum_s);
@@ -727,14 +750,14 @@ ssd_chunk_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (MODE != kStates) {
     const int tx = threadIdx.x % 16;
     const int ty = threadIdx.x / 16;
-    const float* qb = q + w.g * lay.q[0] + w.c * lay.q[1];
-    float* yb = y + w.g * lay.y[0] + w.c * lay.y[1] + h * lay.y[3];
+    const T* qb = q + w.g * lay.q[0] + w.c * lay.q[1];
+    T* yb = y + w.g * lay.y[0] + w.c * lay.y[1] + h * lay.y[3];
     for (int r0 = 0; r0 < L; r0 += kTileF) {
       __syncthreads();  // the previous tile's readers of q_t are done
       for (int e = threadIdx.x; e < kTileF * kD; e += kThreads) {
         const int r = e / kD;
         const int c = e % kD;
-        q_t[r * kLdf + c] = r0 + r < L ? qb[(r0 + r) * lay.q[2] + c] : 0.f;
+        q_t[r * kLdf + c] = r0 + r < L && c < dk ? to_float(qb[(r0 + r) * lay.q[2] + c]) : 0.f;
       }
       __syncthreads();
 
@@ -751,7 +774,7 @@ ssd_chunk_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) er[i] = expf(cr[i]);
 #pragma unroll 4
-      for (int d = 0; d < kD; ++d) {
+      for (int d = 0; d < dk; ++d) {
         float a[4];
         float hh[4];
 #pragma unroll
@@ -767,7 +790,7 @@ ssd_chunk_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int k0 = 0; k0 <= r0; k0 += kTileF) {
         float sc[4][4] = {};
 #pragma unroll 4
-        for (int d = 0; d < kD; ++d) {
+        for (int d = 0; d < dk; ++d) {
           float a[4];
           float b[4];
 #pragma unroll
@@ -785,8 +808,8 @@ ssd_chunk_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const int key = k0 + tx + 16 * j;
-            p_t[(ty + 16 * i) * kLdf + tx + 16 * j] =
-                key <= row ? sc[i][j] * expf(cr[i] - cum_s[key]) : 0.f;
+            const float pk = key <= row ? sc[i][j] * expf(cr[i] - cum_s[key]) : 0.f;
+            p_t[(ty + 16 * i) * kLdf + tx + 16 * j] = round_as<T>(pk);
           }
         }
         __syncthreads();
@@ -811,13 +834,16 @@ ssd_chunk_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int row = r0 + ty + 16 * i;
         if (row >= L) continue;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) yb[row * lay.y[2] + tx + 16 * j] = acc[i][j];
+        for (int j = 0; j < 4; ++j) {
+          const int col = tx + 16 * j;
+          if (col < dv) yb[row * lay.y[2] + col] = from_float<T>(acc[i][j]);
+        }
       }
     }
   }
 
   if (MODE != kOutputs) {
-    chunk_state_f32(k_s, v_s, h_s, cum_s, dte_s, L, MODE == kFull, state + hoff);
+    chunk_state_simt(k_s, v_s, h_s, cum_s, dte_s, L, dk, dv, MODE == kFull, state + hoff);
   }
 }
 
@@ -897,39 +923,54 @@ int launch_tma(const void* q, const void* k, const void* v, const void* ld, cons
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int MODE>
-int launch_f32(const void* q, const void* k, const void* v, const void* ld, const void* h_in,
-               void* y, void* state, Layout lay, int device, cudaStream_t stream) {
+template <int MODE, typename T>
+int launch_simt(const void* q, const void* k, const void* v, const void* ld, const void* h_in,
+                void* y, void* state, Layout lay, int device, cudaStream_t stream) {
   static bool done[kMaxDevices] = {};
-  int err = set_smem(ssd_chunk_f32_kernel<MODE>, f32_smem_bytes(kMaxL), done, device);
+  int err = set_smem(ssd_chunk_simt_kernel<MODE, T>, simt_smem_bytes(kMaxL), done, device);
   if (err) return err;
   lay.heads_per_block = 1;
   const long long blocks = static_cast<long long>(lay.groups) * lay.n_chunks * lay.heads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const int lp = (lay.len + kTileF - 1) / kTileF * kTileF;
-  ssd_chunk_f32_kernel<MODE><<<static_cast<unsigned>(blocks), kThreads, f32_smem_bytes(lp),
-                               stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(ld), static_cast<const float*>(h_in), static_cast<float*>(y),
+  ssd_chunk_simt_kernel<MODE, T><<<static_cast<unsigned>(blocks), kThreads, simt_smem_bytes(lp),
+                                   stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(ld), static_cast<const float*>(h_in), static_cast<T*>(y),
       static_cast<float*>(state), lay);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_simt_mode(int mode, const void* q, const void* k, const void* v, const void* ld,
+                     const void* h_in, void* y, void* state, Layout lay, int device,
+                     cudaStream_t st) {
+  switch (mode) {
+    case kFull: return launch_simt<kFull, T>(q, k, v, ld, h_in, y, state, lay, device, st);
+    case kStates: return launch_simt<kStates, T>(q, k, v, ld, h_in, y, state, lay, device, st);
+    default: return launch_simt<kOutputs, T>(q, k, v, ld, h_in, y, state, lay, device, st);
+  }
+}
+
 }  // namespace
 
-// dims: G, Hg, NC, L (1 <= L <= 256). strides (elements, 18 values): q and k
-// of (g, c, l), v, y and ld of (g, c, l, h); q, k: (G, NC, L, 64), v, y: (G,
-// NC, L, Hg, 64), ld: (G, NC, L, Hg), one type, bf16 (is_bf16 = 1, the strides
-// of q, k and v multiples of 8 elements and their bases 16-byte aligned, for
-// TMA) or f32; h_in, state: contiguous (G, Hg, NC, 64, 64) f32. mode: 0 full
-// (reads q, h_in; writes y, state), 1 states (reads neither q nor h_in;
-// writes state), 2 outputs (writes y). Returns a cudaError_t.
+// dims: G, Hg, NC, L, Dk, Dv (1 <= L <= 256, 1 <= Dk, Dv <= 64). strides
+// (elements, 18 values): q and k of (g, c, l), v, y and ld of (g, c, l, h); q,
+// k: (G, NC, L, Dk), v, y: (G, NC, L, Hg, Dv), ld: (G, NC, L, Hg), one type,
+// bf16 (is_bf16 = 1; at Dk = Dv = 64 the strides of q, k and v multiples of 8
+// elements and their bases 16-byte aligned, for TMA) or f32; h_in, state:
+// contiguous (G, Hg, NC, Dk, Dv) f32. mode: 0 full (reads q, h_in; writes y,
+// state), 1 states (reads neither q nor h_in; writes state), 2 outputs (writes
+// y). bf16 at Dk = Dv = 64 runs the TMA + wgmma body, everything else the
+// CUDA-core body. Returns a cudaError_t.
 extern "C" int repro_ssd_chunks(const void* q, const void* k, const void* v, const void* ld,
                                 const void* h_in, void* y, void* state, const long long* dims,
                                 const long long* strides, int mode, int is_bf16, int device,
                                 void* stream) {
-  const long long G = dims[0], Hg = dims[1], NC = dims[2], L = dims[3];
-  bool ok = G > 0 && Hg > 0 && NC > 0 && L > 0 && L <= kMaxL && G < (1LL << 31) &&
+  const long long G = dims[0], Hg = dims[1], NC = dims[2], L = dims[3], Dk = dims[4],
+                  Dv = dims[5];
+  bool ok = G > 0 && Hg > 0 && NC > 0 && L > 0 && L <= kMaxL && Dk > 0 && Dk <= kD && Dv > 0 &&
+            Dv <= kD && G < (1LL << 31) &&
             Hg < (1LL << 31) && NC < (1LL << 31) && mode >= kFull && mode <= kOutputs &&
             k != nullptr && v != nullptr && ld != nullptr;
   if (mode != kStates) ok = ok && q != nullptr && h_in != nullptr && y != nullptr;
@@ -954,17 +995,18 @@ extern "C" int repro_ssd_chunks(const void* q, const void* k, const void* v, con
   lay.heads = static_cast<int>(Hg);
   lay.n_chunks = static_cast<int>(NC);
   lay.len = static_cast<int>(L);
+  lay.dk = static_cast<int>(Dk);
+  lay.dv = static_cast<int>(Dv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
+  if (is_bf16 && Dk == kD && Dv == kD) {
     switch (mode) {
       case kFull: return launch_tma<kFull>(q, k, v, ld, h_in, y, state, lay, device, st);
       case kStates: return launch_tma<kStates>(q, k, v, ld, h_in, y, state, lay, device, st);
       default: return launch_tma<kOutputs>(q, k, v, ld, h_in, y, state, lay, device, st);
     }
   }
-  switch (mode) {
-    case kFull: return launch_f32<kFull>(q, k, v, ld, h_in, y, state, lay, device, st);
-    case kStates: return launch_f32<kStates>(q, k, v, ld, h_in, y, state, lay, device, st);
-    default: return launch_f32<kOutputs>(q, k, v, ld, h_in, y, state, lay, device, st);
+  if (is_bf16) {
+    return launch_simt_mode<__nv_bfloat16>(mode, q, k, v, ld, h_in, y, state, lay, device, st);
   }
+  return launch_simt_mode<float>(mode, q, k, v, ld, h_in, y, state, lay, device, st);
 }

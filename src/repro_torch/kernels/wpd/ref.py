@@ -16,13 +16,19 @@ def wpd_level(
         raise ValueError(f"row length {n} must be even")
     x = x.to(torch.float32)
     taps = h.shape[0]
-    # One periodized copy; tap k reads the stride-2 view starting at k.
-    xp = x[..., torch.arange(n + taps - 2, device=x.device) % n]
-    a = torch.zeros(x.shape[:-1] + (n // 2,), dtype=torch.float32, device=x.device)
+    half = n // 2
+    # One periodized copy of n + taps - 2 samples (the row, then its first
+    # taps - 2 samples again; whole rows more than once where the row is
+    # shorter than that), split into its even and odd samples: tap k reads
+    # phase k % 2 from sample k // 2 on, a contiguous slice.
+    m = n + taps - 2
+    xp = torch.cat([x] * (m // n) + [x[..., : m % n]], dim=-1)
+    phases = (xp[..., 0::2].contiguous(), xp[..., 1::2].contiguous())
+    a = torch.zeros(x.shape[:-1] + (half,), dtype=torch.float32, device=x.device)
     d = torch.zeros_like(a)
     term = torch.empty_like(a)
     for k, (hk, gk) in enumerate(zip(h.tolist(), g.tolist())):
-        v = xp[..., k : k + n - 1 : 2]
+        v = phases[k % 2][..., k // 2 : k // 2 + half]
         a += torch.mul(v, hk, out=term)
         d += torch.mul(v, gk, out=term)
     return a, d

@@ -26,9 +26,16 @@ propagation, which is what a device computes and moves:
                         output, reduce-scatter the input, all-to-all the
                         input.
 
-In eager code a Python loop runs its body every time, so each layer and
-each microbatch is counted as often as it runs: the trip-count weighting
-that the reference recovers from ``known_trip_count`` comes for free.
+Loops. A Python loop (the layers, the microbatches, the chunks of a
+chunked scan) still runs its body every trip, and each trip is counted as
+it runs. ``models.scan_core.scan``, the twin of ``lax.scan``, runs its
+body once under an active mode (``run_trips``): the mode counts that
+trip's flops, HBM bytes and collective bytes ``trips`` times, and so the
+backward of every autograd node the trip made when the backward runs it.
+That is the reference's rule for a while loop with a ``known_trip_count``
+(one body, weighted by its trips). The trip's storages count once toward
+the peak, as the reference's buffer assignment holds one body's
+temporaries.
 
 DTensor's sharding propagation runs each new op once more on fake
 tensors of the GLOBAL shapes, to learn its output's shape (on a cache
@@ -45,7 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import weakref
-from typing import Any
+from typing import Any, Callable
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -145,6 +152,7 @@ class CostMode(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self.propagations = 0   # DTensor shape propagations seen (and not counted)
+        self._weight = 1        # trips each counted op stands for (``run_trips``)
         self._tracked: dict[int, tuple[weakref.ref, int]] = {}
         from repro_torch.sharding.activations import is_dtensor
 
@@ -200,6 +208,58 @@ class CostMode(TorchDispatchMode):
                 self.live -= n
         return callback
 
+    # --- loops run once for all their trips (``scan_core.scan``) -------------
+    def _sequence_mark(self) -> int:
+        """The sequence number the next autograd node will get (nodes are
+        numbered in creation order, per thread)."""
+        self._skip += 1
+        try:
+            with torch.enable_grad():
+                probe = torch.empty(0, requires_grad=True).view(0)
+            return probe.grad_fn._sequence_nr() + 1
+        finally:
+            self._skip -= 1
+
+    def _weight_backward(self, out: Any, since: int, trips: int) -> None:
+        """Weight the backward of every autograd node behind ``out`` that
+        was made at or after ``since`` by ``trips``: a pre-hook raises the
+        weight as the engine starts the node, a hook puts it back."""
+        seen: set[int] = set()
+        stack = [t.grad_fn for t in _tensors(out) if t.grad_fn is not None]
+        while stack:
+            node = stack.pop()
+            if node is None or id(node) in seen:
+                continue
+            seen.add(id(node))
+            if type(node).__name__ == "AccumulateGrad" or node._sequence_nr() < since:
+                continue
+            saved: list[int] = []
+
+            def pre(grads, saved=saved):
+                saved.append(self._weight)
+                self._weight *= trips
+
+            def post(grad_inputs, grad_outputs, saved=saved):
+                self._weight = saved.pop()
+
+            node.register_prehook(pre)
+            node.register_hook(post)
+            stack.extend(nxt for nxt, _ in node.next_functions)
+
+    def run_trips(self, fn: Callable[[], Any], trips: int) -> Any:
+        """``fn()``, one trip of a loop body, counted as ``trips`` trips:
+        its ops now, its autograd nodes' backward when it runs."""
+        since = self._sequence_mark() if torch.is_grad_enabled() else None
+        before = self._weight
+        self._weight = before * trips
+        try:
+            out = fn()
+        finally:
+            self._weight = before
+        if since is not None:
+            self._weight_backward(out, since, trips)
+        return out
+
     # --- dispatch -------------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -218,8 +278,9 @@ class CostMode(TorchDispatchMode):
         packet = func._overloadpacket
         name = packet.__name__
         ns = packet._qualified_op_name.split("::")[0]
+        w = self._weight
         if packet in self._flops_of:
-            self.flops += float(self._flops_of[packet](*args, **kwargs, out_val=out))
+            self.flops += w * float(self._flops_of[packet](*args, **kwargs, out_val=out))
         ins = _tensors((args, kwargs))
         outs = _tensors(out)
         in_bytes = sum(_nbytes(t) for t in ins)
@@ -228,18 +289,18 @@ class CostMode(TorchDispatchMode):
             kind = _COLLECTIVES[name]
             first = _nbytes(ins[0]) if ins else 0
             moved = {"all-reduce": 2 * first, "all-gather": out_bytes}.get(kind, first)
-            self.coll_by_type[kind] = self.coll_by_type.get(kind, 0.0) + moved
-            self.hbm_bytes += in_bytes + out_bytes
+            self.coll_by_type[kind] = self.coll_by_type.get(kind, 0.0) + w * moved
+            self.hbm_bytes += w * (in_bytes + out_bytes)
             return
         if not outs or ns == "prim" or name in _NO_TRAFFIC or func.is_view:
             return  # metadata (no tensor out), allocations, views
         if name in _SLICING:
-            self.hbm_bytes += 2 * out_bytes
+            self.hbm_bytes += w * 2 * out_bytes
         elif name in _WRITES:
             src = [t for t in ins[1:] if t.dtype.is_floating_point or t.dtype == ins[0].dtype]
-            self.hbm_bytes += 2 * (_nbytes(src[-1]) if src else out_bytes)
+            self.hbm_bytes += w * 2 * (_nbytes(src[-1]) if src else out_bytes)
         else:
-            self.hbm_bytes += in_bytes + out_bytes
+            self.hbm_bytes += w * (in_bytes + out_bytes)
 
     @property
     def coll_bytes(self) -> float:

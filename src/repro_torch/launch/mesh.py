@@ -15,7 +15,8 @@ the process group on every rank with the named backend, puts rank r on
 or raises. The ranks split the caller's intra-op threads between them. Each rank's return value comes back to the caller, and a
 rank's exception comes back as its traceback with a nonzero
 ``returncode``. Then ``make_host_mesh`` gives a rank its
-``DeviceMesh``.
+``DeviceMesh``. ``local_world`` makes this process the one rank of a
+world and gives its (1, 1) mesh.
 
 Backends are explicit; nothing is switched for the caller:
 
@@ -30,6 +31,7 @@ The map always runs on the rank's device.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
 import multiprocessing
@@ -109,6 +111,28 @@ def make_host_mesh(data: int = 1, model: int = 1, *, device_type: str = "cuda"):
     if data * model != world:
         raise ValueError(f"mesh ({data}, {model}) needs {data * model} ranks; the world has {world}")
     return init_device_mesh(device_type, (data, model), mesh_dim_names=("data", "model"))
+
+
+@contextlib.contextmanager
+def local_world(backend: str, device_type: str = "cuda"):
+    """A world of one rank in this process (no new process: this process is
+    rank 0 of 1, its store on a free local port) and its (1, 1)
+    ``make_host_mesh``; the world is destroyed on exit. The one-process form
+    of a mesh of one device along ``data``. Raises if a world is already
+    initialized."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend={backend!r}: pass one of {BACKENDS}")
+    if dist.is_initialized():
+        raise RuntimeError("a torch.distributed world is already initialized in this process")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    store = dist.TCPStore(_HOST, 0, world_size=1, is_master=True,
+                          timeout=datetime.timedelta(seconds=300))
+    dist.init_process_group(backend, store=store, rank=0, world_size=1)
+    try:
+        yield make_host_mesh(1, 1, device_type=device_type)
+    finally:
+        dist.destroy_process_group()
 
 
 class WorldResult(NamedTuple):
@@ -277,4 +301,5 @@ def spawn_world(
 
 
 __all__ = ["BACKENDS", "HBM_BW", "HBM_BYTES", "INTER_NODE_BW", "PEAK_FLOPS_BF16", "WorldResult",
-           "make_fake_mesh", "make_host_mesh", "make_production_mesh", "spawn_world"]
+           "local_world", "make_fake_mesh", "make_host_mesh", "make_production_mesh",
+           "spawn_world"]

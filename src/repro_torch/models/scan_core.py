@@ -11,14 +11,61 @@ loop across chunks (the reference's ``lax.scan``).
 
 Conventions: ``cum`` is the inclusive within-chunk cumsum of ``ld``; the
 decay between positions j <= i (same chunk) is ``exp(cum_i - cum_j)``.
+
+``scan`` is the twin of ``lax.scan`` for loops that run once per time
+step (xLSTM's sLSTM).
 """
 
 from __future__ import annotations
 
+from typing import Any, Callable
+
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 NEG_INF = -1e30
+
+
+def _trip_runner():
+    """The innermost active dispatch mode that runs a loop's trips at once
+    (one with a ``run_trips`` method: the dry run's
+    ``launch.cost_analysis.CostMode``), or None."""
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if hasattr(mode, "run_trips"):
+            return mode
+    return None
+
+
+def scan(step: Callable[[Any, list[torch.Tensor]], tuple[Any, torch.Tensor]], carry: Any,
+         xs: list[torch.Tensor], *, dim: int = 0) -> tuple[Any, torch.Tensor]:
+    """The twin of ``lax.scan`` over axis ``dim`` of every tensor in
+    ``xs``: ``step(carry, [x.select(dim, t) for x in xs])`` returns
+    ``(carry, y)`` for t = 0, 1, ...; returns the last carry and the ``y``s
+    stacked along ``dim``.
+
+    Eagerly the body runs once a trip. Under an active dispatch mode with a
+    ``run_trips`` method (the dry run's ``launch.cost_analysis.CostMode``)
+    it runs once, and the mode counts that trip's cost, forward and
+    backward, as many times as there are trips (the reference's
+    ``known_trip_count`` rule); the outputs then have their shapes, with the
+    first trip's values (fake tensors carry none)."""
+    trips = xs[0].shape[dim]
+    mode = _trip_runner()
+    if mode is None:
+        ys = []
+        for t in range(trips):
+            carry, y = step(carry, [x.select(dim, t) for x in xs])
+            ys.append(y)
+        return carry, torch.stack(ys, dim=dim)
+    first = [x.select(dim, 0) for x in xs]
+    carry, y = mode.run_trips(lambda: step(carry, first), trips)
+    # The stacked output as a stack writes it: one read and one write of
+    # every trip's y.
+    ys = y.unsqueeze(dim)
+    sizes = list(ys.shape)
+    sizes[dim] = trips
+    return carry, ys.expand(sizes).contiguous()
 
 
 def chunked_linear_attention(

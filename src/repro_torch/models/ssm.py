@@ -76,8 +76,10 @@ def _use_ssd_kernel(x: torch.Tensor, initial_state, s: int, chunk: int) -> bool:
     """The reference's gate, with "the backend is a TPU" read as "the
     activations are on a CUDA card and need no gradient": with no initial
     state and S a multiple of the chunk, the chunk step runs as K6
-    (kernels/ssd). K6 has no backward (nor has the reference's Pallas
-    kernel), so activations that require grad take ``scan_core``."""
+    (kernels/ssd), at every config's SSD state and head sizes (full and
+    reduced), as the reference's Pallas kernel does. K6 has no backward
+    (nor has the reference's Pallas kernel), so activations that require
+    grad take ``scan_core``."""
     return (x.device.type == "cuda" and not x.requires_grad and initial_state is None
             and s % chunk == 0)
 

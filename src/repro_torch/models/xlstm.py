@@ -1,8 +1,9 @@
 """xLSTM blocks (arXiv:2405.04517) (twin of the JAX package's
 ``models/xlstm.py``): mLSTM (matrix memory, chunked-parallel through
 ``models.scan_core``) and sLSTM (scalar memory, a strictly sequential
-recurrence with per-head recurrent weights, a Python loop over time where
-the reference scans).
+recurrence with per-head recurrent weights, ``scan_core.scan`` over time
+where the reference runs ``lax.scan``: a loop a time step when it runs,
+one step weighted by its trips when the dry run counts it).
 
 The reference's numerics simplification: instead of the paper's
 max-stabilizer ``m_t`` the exponential input gate is clipped to [-10, 5]
@@ -13,7 +14,7 @@ mLSTM calls ``scan_core`` directly and never reaches K6. sLSTM's
 recurrent term is float32 (its state is float32 and the reference
 promotes the bf16 recurrent weights to it), and so are its gate sums.
 Its input projections ``x_t @ w`` do not depend on the state, so
-``slstm_apply`` makes them for the whole sequence before the loop; each
+``slstm_apply`` makes them for the whole sequence before the scan; each
 is the per-step product of the reference up to the summation order of
 one matmul (``tests/test_torch_families.py`` holds the prefill against
 the per-step decode).
@@ -234,12 +235,14 @@ def slstm_apply(cfg: ArchConfig, p: Params, u: torch.Tensor, return_cache: bool 
     pdim = d // h
     dt = u.dtype
     wx = _slstm_inputs(cfg, p, rmsnorm(p["ln"], u))               # 4 x (B, S, H, P)
-    c = n = hn = torch.zeros((b, h, pdim), dtype=torch.float32, device=u.device)
-    hs = []
-    for t in range(s):
-        c, n, hn = _slstm_step(cfg, p, [w[:, t] for w in wx], c, n, hn)
-        hs.append(hn.to(dt))
-    out = _slstm_out(p, u, torch.stack(hs, dim=1))
+
+    def step(carry, wx_t):
+        c, n, hn = _slstm_step(cfg, p, wx_t, *carry)
+        return (c, n, hn), hn.to(dt)
+
+    zeros = torch.zeros((b, h, pdim), dtype=torch.float32, device=u.device)
+    (c, n, hn), hs = scan_core.scan(step, (zeros, zeros, zeros), wx, dim=1)
+    out = _slstm_out(p, u, hs)
     if not return_cache:
         return out
     return out, {"c": c, "n": n, "h": hn}

@@ -10,7 +10,7 @@ All functions accept leading batch axes (the chunks of an engine step).
 ``reference_kernels=True`` runs the reference's pre-megabatch math: the
 DWT level by level in the gather form, each scale transposed to
 sample-major and fitted there (``pca.fit``) with the full-width masked
-reconstruction, and the scatter-add synthesis.
+reconstruction, and the longhand transpose synthesis.
 """
 
 from __future__ import annotations

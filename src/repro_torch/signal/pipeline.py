@@ -10,7 +10,7 @@ for byte. ``use_kernel`` is kept for that parity only: the port routes
 every kernel by the device its tensors lie on. ``reference_kernels=True``
 runs the reference's pre-megabatch formulations (the serving bench's
 serial-replay leg): gather-form wavelet analysis level by level,
-sample-major PCA with the full-width masked reconstruction, scatter-add
+sample-major PCA with the full-width masked reconstruction, the transpose
 synthesis.
 
 ``fit`` trains on one device or MapReduce-style (one process per shard

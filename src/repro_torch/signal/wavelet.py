@@ -13,7 +13,7 @@ reference's pad + static-slice polyphase form.
 the ``PipelineConfig(reference_kernels=True)`` leg runs: analysis level by
 level as a gather + matmul (on a CUDA tensor, K2's single-level launch,
 the TPU kernel's own contract, which tiles that gather layout) and
-synthesis as the scatter-add transpose.
+synthesis as the longhand transpose, summed in the scatter-add's order.
 """
 
 from __future__ import annotations
@@ -108,17 +108,34 @@ def synthesis_step(
     return torch.stack([even, odd], dim=-1).reshape(a.shape[:-1] + (2 * half,))
 
 
+@functools.cache
+def _transpose_order(n: int, taps: int, device: torch.device) -> torch.Tensor:
+    """(n, taps // 2) positions in the flattened (n/2, taps) window table:
+    row o lists the (coefficient, tap) pairs that land on output sample o,
+    in the table's flat order. Every output of the periodized transpose
+    gets exactly taps // 2 of them (the taps of its parity)."""
+    idx = _window_indices(n, taps).reshape(-1)
+    order = torch.argsort(idx, stable=True)
+    return order.reshape(n, taps // 2).to(device)
+
+
 def synthesis_step_reference(
     a: torch.Tensor, d: torch.Tensor, wavelet: str = "db4"
 ) -> torch.Tensor:
-    """The longhand transpose: scatter-add each coefficient's taps (the
-    oracle ``synthesis_step`` is tested against)."""
+    """The longhand transpose: each output sample sums its coefficients'
+    taps (the oracle ``synthesis_step`` is tested against). The taps are
+    gathered into a row per output and added from a zero, left to right in
+    the window table's flat order: the order in which a scatter-add
+    (``index_add_``) visits them on the CPU, so the bits are the scatter
+    form's, and the same on every call on any device (no atomics)."""
     h, g = (f.to(a.device) for f in filters(wavelet))
     n = 2 * a.shape[-1]
-    idx = _window_indices(n, h.shape[0], a.device)  # (N/2, L)
-    contrib = a[..., :, None] * h + d[..., :, None] * g  # (..., N/2, L)
+    contrib = (a[..., :, None] * h + d[..., :, None] * g).flatten(-2)  # (..., N/2 * L)
+    rows = contrib[..., _transpose_order(n, h.shape[0], a.device)]     # (..., N, L/2)
     out = torch.zeros(a.shape[:-1] + (n,), dtype=a.dtype, device=a.device)
-    return out.index_add_(-1, idx.reshape(-1), contrib.flatten(-2))
+    for j in range(rows.shape[-1]):
+        out = out + rows[..., j]
+    return out
 
 
 def dwt(
@@ -143,7 +160,7 @@ def idwt(
     coeffs: list[torch.Tensor], wavelet: str = "db4", *, reference: bool = False
 ) -> torch.Tensor:
     """Inverse of ``dwt``; ``reference=True`` synthesizes each level by the
-    scatter-add ``synthesis_step_reference``."""
+    longhand transpose ``synthesis_step_reference``."""
     step = synthesis_step_reference if reference else synthesis_step
     cur = coeffs[-1]
     for d in reversed(coeffs[:-1]):

@@ -57,7 +57,7 @@ from repro_torch.core import rotation_forest as rf
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import train_forest
 from repro_torch.serving import api
-from repro_torch.signal import eeg_data
+from repro_torch.signal import eeg_data, pipeline
 
 # One intra-op thread, as the ranks use: the emulations computed here
 # then sum in the ranks' order.
@@ -259,6 +259,24 @@ def test_process_recording_mapreduce_matches_jax(world, data):
         assert torch.equal(got, per_shard) and got.shape == (120, 288)
         z = np.abs(got.numpy() - want) / (want.std(0) + 1e-6)
         assert float(z.max()) <= 2e-3
+
+
+def test_local_world_is_this_process_as_one_rank(data):
+    """``local_world``: this process as the one rank of a gloo world and
+    its (1, 1) mesh (the examples' form of a one-device mesh): the map over
+    it is ``process_windows`` of the one shard, bit for bit; a second world
+    inside it is refused, and none is left on exit."""
+    windows = torch.from_numpy(data["rec_windows"][:60])
+    rec = eeg_data.Recording(windows, torch.from_numpy(data["rec_labels"][:60]))
+    cfg = pipeline.PipelineConfig()
+    with mesh_lib.local_world("gloo", "cpu") as mesh:
+        assert dist.get_world_size() == 1 and tuple(mesh.shape) == (1, 1)
+        got = pipeline.process_recording_mapreduce(mesh, rec, cfg)
+        with pytest.raises(RuntimeError, match="already initialized"):
+            with mesh_lib.local_world("gloo", "cpu"):
+                pass
+    assert not dist.is_initialized()
+    assert torch.equal(got, pipeline.process_windows(windows, cfg))
 
 
 # ---------------------------------------------------------------------------

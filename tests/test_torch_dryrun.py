@@ -10,9 +10,10 @@ makes one destroys it on the way out (``_fake_world``), so later tests in
 the same worker see no world.
 
 Tolerances: flops and collective bytes exactly (both are counts of
-shapes); a reduced dense forward's matmul flops within 2% of the JAX
-analyzer's (measured: equal, 0.0%); HBM bytes of an n-step loop within
-[1.6, 2.4] x of the n/2-step loop's (the reference's bound).
+shapes); a reduced dense or xLSTM forward's matmul flops within 2% of the
+JAX analyzer's (measured: equal, 0.0%); HBM bytes of an n-step loop
+within [1.6, 2.4] x of the n/2-step loop's (the reference's bound); a
+scan's counts equal to the loop's it stands for.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from repro_torch.configs import ARCH_NAMES, INPUT_SHAPES, get_config
 from repro_torch.launch import cost_analysis as ca
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_fake_mesh
-from repro_torch.models import build, params as pr
+from repro_torch.models import build, params as pr, scan_core
 
 
 @contextlib.contextmanager
@@ -104,6 +105,72 @@ def test_a_loop_counts_every_trip():
     assert _cost(nested, (32, 32), (3, 5, 32, 32)).flops == 3 * 5 * 2 * 32 ** 3
 
 
+def _scan_body(h, xs):
+    (w,) = xs
+    h = torch.tanh(h @ w)
+    return h, h * 2.0
+
+
+def test_scan_counts_one_body_times_its_trips():
+    """``scan_core.scan`` under a CostMode runs its body once and counts it
+    ``trips`` times: forward flops and HBM bytes equal the eager loop's
+    (whose stack the scan's one output write matches), and the backward's
+    matmul flops too, counted as the autograd engine runs the one trip's
+    nodes. The outputs keep their shapes."""
+    n, m = 8, 32
+    calls = []
+
+    def body(h, xs):
+        calls.append(1)
+        return _scan_body(h, xs)
+
+    def loop(h, ws):
+        ys = []
+        for t in range(ws.shape[0]):
+            h, y = _scan_body(h, [ws[t]])
+            ys.append(y)
+        return h, torch.stack(ys)
+
+    counts = {}
+    for name, fn in (("loop", loop), ("scan", lambda h, ws: scan_core.scan(body, h, [ws]))):
+        with FakeTensorMode():
+            h0, ws = torch.empty(m, m, requires_grad=True), torch.empty(n, m, m, requires_grad=True)
+            with ca.CostMode(exclude=(h0, ws)) as mode:
+                h, ys = fn(h0, ws)
+                forward = (mode.flops, mode.hbm_bytes)
+                (h.sum() + ys.sum()).backward()
+        assert tuple(h.shape) == (m, m) and tuple(ys.shape) == (n, m, m)
+        counts[name] = forward, mode.flops
+    assert len(calls) == 1
+    assert counts["scan"][0] == counts["loop"][0] == (n * 2 * m ** 3, counts["loop"][0][1])
+    assert counts["scan"][1] == counts["loop"][1] == 3 * n * 2 * m ** 3
+
+
+def test_eager_scan_gives_the_loop_bits():
+    """Outside a CostMode ``scan`` is the loop it replaced in
+    ``xlstm.slstm_apply``, bit for bit: a reduced sLSTM block's output and
+    final state against that loop, kept here."""
+    from repro_torch.models import xlstm
+    from repro_torch.models.layers import rmsnorm
+
+    cfg = get_config("xlstm-1.3b").reduced()
+    model = build(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    _, p = model.compute_params()[1][0]       # super-block 0: (mLSTM blocks, sLSTM block)
+    u = torch.randn(2, 24, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    got, cache = xlstm.slstm_apply(cfg, p, u, return_cache=True)
+    b, s, d = u.shape
+    wx = xlstm._slstm_inputs(cfg, p, rmsnorm(p["ln"], u))
+    c = n = hn = torch.zeros((b, cfg.n_heads, d // cfg.n_heads), dtype=torch.float32)
+    hs = []
+    for t in range(s):
+        c, n, hn = xlstm._slstm_step(cfg, p, [w[:, t] for w in wx], c, n, hn)
+        hs.append(hn.to(u.dtype))
+    want = xlstm._slstm_out(p, u, torch.stack(hs, dim=1))
+    assert torch.equal(got, want)
+    for key, t in (("c", c), ("n", n), ("h", hn)):
+        assert torch.equal(cache[key], t)
+
+
 def test_hbm_bytes_scale_with_trip_count():
     m = 128
 
@@ -154,25 +221,44 @@ def test_row_parallel_matmul_counts_the_local_shard():
     assert mode.coll_by_type == {"all-reduce": 2 * 16 * 128 * 4}
 
 
-def test_forward_matmul_flops_match_the_jax_analyzer():
-    """A reduced qwen3 forward on a (1, 1) mesh against the reference's
-    ``hlo_analysis.analyze`` of the same forward, compiled: dot flops
-    within 2% (the two count the same projections, attention einsums and
-    unembedding)."""
-    jcfg = jget_config("qwen3-0.6b").reduced()
+def _forward_flops(arch: str, s: int) -> tuple[float, float]:
+    """A reduced forward of (2, s) tokens: the reference's
+    ``hlo_analysis.analyze`` flops of the compiled forward, and the port's
+    on a (1, 1) mesh of a fake world."""
+    jcfg = jget_config(arch).reduced()
     jmodel = jbuild(jcfg)
-    toks = jax.ShapeDtypeStruct((2, 64), jnp.int32)
+    toks = jax.ShapeDtypeStruct((2, s), jnp.int32)
     compiled = jax.jit(lambda p, t: jmodel.forward(p, {"tokens": t})).lower(
         jmodel.param_shapes(), toks).compile()
     want = hlo_analysis.analyze(compiled.as_text()).flops
-    cfg = get_config("qwen3-0.6b").reduced()
+    cfg = get_config(arch).reduced()
     with _fake_world() as mesh, FakeTensorMode():
         model = build(cfg, act_axes=("data",), mesh=mesh)
         model.load_params(model.distribute_params(pr.shape_tree(model.param_specs(), "cpu")),
                           device="cpu")
         cost, _ = dryrun.trace(lambda b: model.forward(b),
-                               ({"tokens": torch.zeros(2, 64, dtype=torch.int32)},))
-    assert cost.flops == pytest.approx(want, rel=0.02)
+                               ({"tokens": torch.zeros(2, s, dtype=torch.int32)},))
+    return cost.flops, want
+
+
+def test_forward_matmul_flops_match_the_jax_analyzer():
+    """A reduced qwen3 forward on a (1, 1) mesh against the reference's
+    ``hlo_analysis.analyze`` of the same forward, compiled: dot flops
+    within 2% (the two count the same projections, attention einsums and
+    unembedding)."""
+    got, want = _forward_flops("qwen3-0.6b", 64)
+    assert got == pytest.approx(want, rel=0.02)
+
+
+def test_xlstm_forward_matmul_flops_match_the_jax_analyzer():
+    """The same for a reduced xlstm-1.3b forward (an mLSTM and an sLSTM
+    block) at S = 512: the reference counts its sLSTM ``lax.scan`` body once
+    and weights it by the known trip count, the port's ``scan`` runs one
+    trip that the cost mode weights alike (measured: equal). S = 512 makes
+    two mLSTM chunks of 256: at one chunk XLA folds the inter-chunk product
+    with the zero initial state away, which the port counts."""
+    got, want = _forward_flops("xlstm-1.3b", 512)
+    assert got == pytest.approx(want, rel=0.02)
 
 
 # ---------------------------------------------------------------------------

@@ -15,9 +15,11 @@ mismatch against that margin.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import os
 import pathlib
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +37,11 @@ from repro_torch.checkpoint import store
 from repro_torch.kernels.forest import ops as forest_ops
 from repro_torch.serving import api
 from repro_torch.signal import frontend
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.append(str(ROOT))  # chip_smoke.py, which loads the example scripts
+load_example = importlib.import_module("chip_smoke").load_example
 
 # One intra-op thread: the suite runs in parallel workers on a shared
 # machine, where OpenMP barriers across two threads stall far longer
@@ -407,6 +414,31 @@ def test_reference_kernels_leg_emits_the_default_events(jax_events, streams):
     got = _run(api, _port_program(jp, reference_kernels=True), streams, replay_depth=3,
                device="cpu")
     _assert_events_match(got, want, jp, streams)
+
+
+def test_serve_example_gives_the_jax_engine_events(jax_events, streams, monkeypatch):
+    """examples/serve_seizure_torch.py's serving loop on the file's carried
+    program and JAX streams, at 2 slots and replay depth 3 with pushes of
+    25 windows: every poll drains, so each patient's events do not depend
+    on how the pushes are cut, and each equals the patient's events of the
+    file's JAX engine run (its own cuts, depth 3) by the file's rule; the
+    final alarm states are the last chunks' alarms. Without ``device`` the
+    example needs a card."""
+    ex = load_example("serve_seizure_torch")
+    jp, want = jax_events(0, _ALARM[0])
+    got = ex.serve(_port_program(jp), streams, batch=2, push_windows=25, replay_depth=3,
+                   device="cpu", log=lambda *a: None)
+    got_p, want_p = _by_patient(got["events"]), _by_patient(want)
+    assert got_p.keys() == want_p.keys() == streams.keys() and got["chunks"] == 9
+    for pid in streams:
+        _assert_events_match(got_p[pid], want_p[pid], jp, streams)
+        last = [e for e in want_p[pid] if isinstance(e, japi.ChunkScored)][-1]
+        assert got["final_alarms"][pid] == last.alarm
+        assert got["served"][pid]["alarms"] == [
+            e.alarm for e in want_p[pid] if isinstance(e, japi.ChunkScored)]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ex.main(["--patients", "1"])
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ import dataclasses
 import functools
 import importlib
 import importlib.util
+import json
 import pathlib
 import sys
 
@@ -59,6 +60,7 @@ flash_attention_ops = flash_ops.flash_attention
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.append(str(ROOT))  # chip_smoke.py
+load_example = importlib.import_module("chip_smoke").load_example
 
 # One intra-op thread: the suite runs in parallel workers on a shared
 # machine (see test_torch_kernels.py).
@@ -362,33 +364,87 @@ def test_forward_prefill_decode(pairs, arch):
 # Engines
 # ---------------------------------------------------------------------------
 
-def test_serve_engine_matches_jax(pairs):
+@pytest.fixture(scope="module")
+def jax_static(pairs):
+    """Three ragged prompts through the reference's ``ServeEngine`` (4 slots,
+    max_seq 48, 6 new tokens, no eos): the prompts and the tokens."""
     pair = pairs["qwen3"]
     rng = np.random.default_rng(4)
     prompts = [rng.integers(2, pair.cfg.vocab_size, size=n).astype(np.int32)
                for n in (5, 12, 9)]
-    engine = ServeEngine(pair.model, max_batch=4, max_seq=48, eos_id=-1, device="cpu")
     jengine = JServeEngine(pair.jmodel, pair.jparams, max_batch=4, max_seq=48, eos_id=-1)
-    got = engine.generate(prompts, max_new=6)
-    want = jengine.generate(prompts, max_new=6)
-    assert [g.tolist() for g in got] == [w.tolist() for w in want]
+    return prompts, [w.tolist() for w in jengine.generate(prompts, max_new=6)]
 
 
-def test_continuous_engine_matches_jax(pairs):
-    """Five requests over two slots with ragged max_new: refills happen
-    mid-stream; every request's tokens equal the reference engine's."""
+@pytest.fixture(scope="module")
+def jax_continuous(pairs):
+    """Five requests over the reference's ``ContinuousEngine``'s two slots
+    (max_seq 48, no eos): the (prompt, max_new) pairs and each request's
+    tokens."""
     pair = pairs["qwen3"]
     rng = np.random.default_rng(6)
     lens, max_new = (5, 9, 5, 9, 5), (3, 6, 2, 5, 4)  # two prompt widths: two compiles
     prompts = [rng.integers(2, pair.cfg.vocab_size, size=n).astype(np.int32) for n in lens]
-    engine = ContinuousEngine(pair.model, max_batch=2, max_seq=48, eos_id=-1, device="cpu")
     jengine = JContinuousEngine(pair.jmodel, pair.jparams, max_batch=2, max_seq=48,
                                 eos_id=-1)
-    got = engine.serve([Request(p, m) for p, m in zip(prompts, max_new)])
     want = jengine.serve([JRequest(p, m) for p, m in zip(prompts, max_new)])
+    return list(zip(prompts, max_new)), [r.out for r in want]
+
+
+def test_serve_engine_matches_jax(pairs, jax_static):
+    pair = pairs["qwen3"]
+    prompts, want = jax_static
+    engine = ServeEngine(pair.model, max_batch=4, max_seq=48, eos_id=-1, device="cpu")
+    got = engine.generate(prompts, max_new=6)
+    assert [g.tolist() for g in got] == want
+
+
+def test_continuous_engine_matches_jax(pairs, jax_continuous):
+    """Five requests over two slots with ragged max_new: refills happen
+    mid-stream; every request's tokens equal the reference engine's."""
+    pair = pairs["qwen3"]
+    requests, want = jax_continuous
+    engine = ContinuousEngine(pair.model, max_batch=2, max_seq=48, eos_id=-1, device="cpu")
+    got = engine.serve([Request(p, m) for p, m in requests])
     assert all(r.done for r in got)
-    assert [r.out for r in got] == [r.out for r in want]
-    assert [len(r.out) for r in got] == list(max_new)
+    assert [r.out for r in got] == want
+    assert [len(r.out) for r in got] == [m for _, m in requests]
+
+
+def test_lm_examples_serve_the_jax_tokens(pairs, jax_static, jax_continuous):
+    """examples/serve_batched_torch.py's static and continuous runs and
+    examples/quickstart_torch.py's decode on the carried reduced qwen3
+    weights, with the engines' settings of the two tests above: their
+    tokens equal the reference engines' exactly."""
+    model = pairs["qwen3"].model
+    serve_batched = load_example("serve_batched_torch")
+    quickstart = load_example("quickstart_torch")
+    prompts, want = jax_static
+    kw = dict(batch=4, max_seq=48, max_new=6, eos_id=-1, device="cpu")
+    assert serve_batched.static(model, prompts, **kw) == want
+    assert quickstart.decode(model, prompts, **kw) == want
+    requests, want = jax_continuous
+    assert serve_batched.continuous(model, requests, batch=2, max_seq=48, eos_id=-1,
+                                    device="cpu") == want
+
+
+def test_lm_examples_run_on_cpu_and_need_a_card_otherwise(capsys, monkeypatch):
+    serve_batched = load_example("serve_batched_torch")
+    quickstart = load_example("quickstart_torch")
+    for argv, key, n in ((["--arch", "qwen3-0.6b", "--batch", "2", "--max-new", "3"],
+                          "tokens", 2),
+                         (["--continuous", "--arch", "qwen3-0.6b", "--batch", "2",
+                           "--max-new", "4"], "tokens", 4)):
+        assert serve_batched.main(argv + ["--device", "cpu"]) == 0
+        res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert len(res[key]) == n and res["n_tokens"] == sum(map(len, res[key]))
+    assert quickstart.main(["--steps", "2", "--device", "cpu"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert len(res["losses"]) == 2 and [len(o) for o in res["generated"]] == [8, 8]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main in (serve_batched.main, quickstart.main):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main([])
 
 
 def test_splice_locates_batch_axis(pairs):

@@ -122,6 +122,38 @@ def test_analysis_and_synthesis_each_level(name):
         cur = a
 
 
+def _index_add_synthesis(a, d, name):
+    """The scatter-add form that ``synthesis_step_reference`` had before
+    it summed in a fixed order (``index_add_``, atomic adds on CUDA): kept
+    here to pin the new form's bits to it."""
+    h, g = wavelet.filters(name)
+    n = 2 * a.shape[-1]
+    idx = wavelet._window_indices(n, h.shape[0])
+    contrib = a[..., :, None] * h + d[..., :, None] * g
+    out = torch.zeros(a.shape[:-1] + (n,), dtype=a.dtype)
+    return out.index_add_(-1, idx.reshape(-1), contrib.flatten(-2))
+
+
+@pytest.mark.parametrize("name,shape", [("db2", (4, 3, 128)), ("db4", (4, 3, 128)),
+                                        ("db4", (2, 3))])
+def test_reference_synthesis_sums_in_the_scatter_order(name, shape):
+    """The fixed-order transpose gives the bits of the scatter-add form it
+    replaced, and of the reference's ``synthesis_step_reference`` run op
+    by op (its scatter visits the taps in the same flat order), at batched
+    lengths and at lengths shorter than the filter (wrapping more than
+    once). Jitted, XLA fuses the reference's products and sums in another
+    order: within 1e-6 of max|want| there."""
+    rng = np.random.default_rng(3)
+    a, d = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+    got = wavelet.synthesis_step_reference(_t(a), _t(d), name)
+    assert torch.equal(got.view(torch.int32), _index_add_synthesis(_t(a), _t(d), name)
+                       .view(torch.int32))
+    want = np.asarray(jwavelet.synthesis_step_reference(jnp.asarray(a), jnp.asarray(d), name))
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    jitted = jax.jit(jwavelet.synthesis_step_reference, static_argnums=2)
+    _close(got.numpy(), jitted(a, d, name), 1e-6)
+
+
 def test_idwt_dwt_round_trip():
     rng = np.random.default_rng(3)
     x = rng.normal(size=(6, 2048)).astype(np.float32)

@@ -42,6 +42,11 @@ depth 1 (a single session never fills a second slot).
 
 from __future__ import annotations
 
+import importlib
+import json
+import pathlib
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -53,6 +58,7 @@ from repro.core import forest_trainer as jft
 from repro.core import mapreduce as jmr
 from repro.core import rotation_forest as jrf
 from repro.kernels.forest import ops as jforest_ops
+from repro.signal import features as jfeatures
 from repro.signal import eeg_data as jeeg
 from repro.signal import pipeline as jpipeline
 from repro_torch import convert
@@ -63,6 +69,11 @@ from repro_torch.core import rotation_forest as rf
 from repro_torch.kernels.forest import ops as forest_ops
 from repro_torch.serving import api
 from repro_torch.signal import eeg_data, features, frontend, pipeline
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.append(str(ROOT))  # chip_smoke.py, which loads the example scripts
+load_example = importlib.import_module("chip_smoke").load_example
 
 # One intra-op thread: the suite runs in parallel workers on a shared
 # machine, where OpenMP barriers across two threads stall far longer
@@ -469,10 +480,12 @@ def test_process_windows_scans_the_stream(slice_data):
     assert int(state.phase) == 3
 
 
-def test_carried_jax_pipeline_scores_like_jax(slice_data):
-    """A JAX-trained pipeline (the reference's MapReduce fit on these
-    training features) evaluated by both packages on one timeline."""
-    rec, timeline = slice_data
+@pytest.fixture(scope="module")
+def jax_slice_fit(slice_data):
+    """The slice's configs in both packages and a JAX-trained pipeline: the
+    reference's MapReduce fit on the port's features of the slice's
+    training set."""
+    rec, _ = slice_data
     cfg = pipeline.PipelineConfig(forest=rf.RotationForestConfig(**SLICE_FOREST))
     jcfg = jpipeline.PipelineConfig(forest=jrf.RotationForestConfig(**SLICE_FOREST))
     feats = pipeline.process_windows(rec.windows, cfg).numpy()
@@ -480,7 +493,14 @@ def test_carried_jax_pipeline_scores_like_jax(slice_data):
         jax.random.PRNGKey(2), jnp.asarray(feats), jnp.asarray(rec.labels.numpy()),
         jcfg.forest, n_shards=2,
     )
-    jfitted = jpipeline.FittedPipeline(res.forest, res.feat_mean, res.feat_std)
+    return cfg, jcfg, jpipeline.FittedPipeline(res.forest, res.feat_mean, res.feat_std)
+
+
+def test_carried_jax_pipeline_scores_like_jax(slice_data, jax_slice_fit):
+    """A JAX-trained pipeline (the reference's MapReduce fit on these
+    training features) evaluated by both packages on one timeline."""
+    _, timeline = slice_data
+    cfg, jcfg, jfitted = jax_slice_fit
     # Whole chunks only on the JAX side: its tail path would compile the
     # reference's process_windows once more (the port's tail is covered below).
     n_whole = timeline.windows.shape[0] // PER * PER
@@ -589,6 +609,82 @@ def test_fit_rejects_shards_off_chunk_boundaries(slice_data):
     cfg = pipeline.PipelineConfig(forest=rf.RotationForestConfig(n_trees=2))
     with pytest.raises(ValueError, match="WINDOWS_PER_MATRIX"):
         pipeline.fit(torch.Generator(), rec, cfg, n_shards=3)
+
+
+# ---------------------------------------------------------------------------
+# The paper's experiment (examples/eeg_seizure_prediction_torch.py)
+# ---------------------------------------------------------------------------
+
+def test_eeg_example_equals_the_jax_steps(jax_slice_fit):
+    """The example's ``run`` at ``--train-windows 30`` on the reference's
+    draws (JAX ``eeg_data``: patient 3's training set of 30 + 30 windows,
+    one chunk, and a timeline of 2 interictal chunks, then 4 of the run-up,
+    drawn at the training set's shapes so that JAX compiles no other
+    draw) with the file's JAX-trained pipeline carried in (the slice's
+    forest), against the JAX example's own steps on the same windows: the
+    map's features within 1.3e-3 program z-units of JAX's
+    ``process_windows`` (the map that ``process_recording_mapreduce`` runs
+    on a one-device mesh); training accuracy, chunk votes, alarms, lead
+    time and onset equal ``predict_windows`` (its body, on those features)
+    / ``evaluate_timeline``'s (the accuracy within a float32 ulp: the two
+    means round differently), and window votes too except at routing
+    margin < 1e-3. The timeline has the slice's shape, so the reference's
+    engine compiles once for the file."""
+    ex = load_example("eeg_seizure_prediction_torch")
+    cfg, jcfg, jfitted = jax_slice_fit
+    half = PER // 2
+    k_train, *k_test = jax.random.split(jax.random.PRNGKey(3), 13)
+    jrec = jeeg.make_training_set(k_train, 3, half, half)
+    regimes = (jeeg.INTERICTAL,) * 4 + (jeeg.PREICTAL,) * 8
+    jtl = jeeg.Recording(
+        jnp.concatenate([jeeg.generate_windows(k, jnp.asarray(3), regime, half)
+                         for k, regime in zip(k_test, regimes)]),
+        jnp.asarray([0] * 2 * PER + [1] * 4 * PER, jnp.int32))
+    jfeats = jpipeline.process_windows(jrec.windows, jcfg)
+    # predict_windows on these windows, its process_windows already made
+    jnormed, _, _ = jfeatures.normalize(jfeats, jfitted.feat_mean, jfitted.feat_std)
+    jpreds = np.asarray(jrf.predict(jfitted.forest, jnormed))
+    want = jpipeline.evaluate_timeline(jfitted, jtl, jcfg)
+
+    fitted = convert.fitted_from_jax(jfitted, device="cpu")
+    got = ex.run(3, 0, half, device="cpu", cfg=cfg, fitted=fitted, log=lambda *a: None,
+                 recording=(np.asarray(jrec.windows), np.asarray(jrec.labels)),
+                 timeline=(np.asarray(jtl.windows), np.asarray(jtl.labels)))
+    std = np.asarray(jfitted.feat_std)
+    assert (np.abs(got["features"] - np.asarray(jfeats)) / std).max() <= 1.3e-3
+    # The same windows right; the accuracies within one float32 ulp, as
+    # jnp.mean on the CPU multiplies by fl(1/W) where the port divides.
+    labels = np.asarray(jrec.labels)
+    assert (got["train_preds"] == labels).sum() == (jpreds == labels).sum()
+    want_acc = float(jnp.mean((jpreds == jrec.labels).astype(jnp.float32)))
+    assert abs(got["train_accuracy"] - want_acc) <= np.spacing(np.float32(want_acc))
+    assert got["chunk_preds"] == np.asarray(want.chunk_preds).tolist()
+    assert got["alarms"] == np.asarray(want.alarms).tolist()
+    assert got["lead_time_minutes"] == float(want.lead_time_minutes)
+    assert got["onset_chunk"] == int(want.onset_chunk)
+    assert sum(got["alarms"]) > 0 and got["lead_time_minutes"] > 0
+    packed = forest_ops.pack_forest(fitted.forest)
+    for preds, jp, feats in ((got["train_preds"], jpreds, got["features"]),
+                             (got["window_preds"], np.asarray(want.window_preds), None)):
+        bad = np.nonzero(preds != jp)[0]
+        if bad.size:
+            if feats is None:
+                feats = pipeline.process_windows(torch.from_numpy(np.asarray(jtl.windows)),
+                                                 cfg).numpy()
+            normed = (feats - np.asarray(jfitted.feat_mean)) / std
+            assert (_margins(normed, packed)[bad] < 1e-3).all()
+
+
+def test_eeg_example_main_runs_on_cpu_and_needs_a_card_otherwise(capsys, monkeypatch):
+    ex = load_example("eeg_seizure_prediction_torch")
+    assert ex.main(["--device", "cpu", "--train-windows", "30", "--hours-interictal", "0"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    res = json.loads(out[-1])
+    assert res["train_windows"] == PER and len(res["chunk_preds"]) == 6
+    assert len(res["alarms"]) == 6 and "[eeg] training accuracy" in "\n".join(out)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ex.main(["--train-windows", "30", "--hours-interictal", "0"])
 
 
 def test_train_forest_launcher_runs_on_cpu(tmp_path, capsys):
